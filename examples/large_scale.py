@@ -1,5 +1,5 @@
 """BASELINE.json config 3: synthetic dense 100k x 1k, HALS and BCD on a
-2D mesh (virtual CPU devices) or one real chip.
+2D mesh (virtual CPU devices) or one GPU.
 
 Run: python examples/large_scale.py [m] [n] [k]
 """

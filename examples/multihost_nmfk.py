@@ -2,14 +2,16 @@
 ``mpirun -n 4 python main.py --process=pyDNMFk ...`` (main.py:45-88).
 
 Launch one copy of this script per host/process (the same contract as
-mpirun; on TPU pods `initialize_multihost()` auto-detects and the CLI
-flag `--multihost` does the same):
+mpirun; on a managed cluster `initialize_multihost()` auto-detects and the
+CLI flag `--multihost` does the same):
 
     # terminal 1                          # terminal 2
     python examples/multihost_nmfk.py \
         --coord=10.0.0.1:9999 --nprocs=2 --pid=0     ... --pid=1
 
-(add ``--cpu`` to demo 2 processes on one box without TPUs)
+Several processes on ONE GPU host each take their own card with
+``--card=<index>`` (a JAX process reserves most of every card it opens);
+add ``--cpu`` instead to demo 2 processes on one box without cards.
 
 What happens, per process:
   * jax.distributed bootstrap (replaces mpirun process management)
@@ -47,7 +49,10 @@ def main():
     ap.add_argument("--results", default="results_mh/")
     ap.add_argument("--cpu", action="store_true",
                     help="force the CPU backend (local multi-process "
-                         "demo on one box; TPU pods omit this)")
+                         "demo on one box)")
+    ap.add_argument("--card", type=int, default=None,
+                    help="the one GPU this process owns, when several "
+                         "processes share a host")
     args = ap.parse_args()
 
     import jax
@@ -61,7 +66,9 @@ def main():
                                            make_grid_mesh)
 
     initialize_multihost(args.coord, num_processes=args.nprocs,
-                         process_id=args.pid)
+                         process_id=args.pid,
+                         local_device_ids=(None if args.card is None
+                                           else [args.card]))
 
     from pydnmfk_tpu import NMFConfig, NMFk, NMFkConfig
     from pydnmfk_tpu.utils.io import DataReader

@@ -1,4 +1,4 @@
-"""NMFk at scale on one chip: HBM-aware ensemble batching in action.
+"""NMFk at scale on one card: memory-aware ensemble batching in action.
 
 Runs the full k-selection pipeline on a synthetic low-rank matrix at a
 fraction of the reference's headline size with bf16-A storage.  The

@@ -1,4 +1,4 @@
-"""NMFk k-selection on swim.mat — TPU-native port of the reference example
+"""NMFk k-selection on swim.mat — JAX port of the reference example
 examples/dist_pynmfk_2d_Swim.py (there: mpirun -n 4, 2x2 grid, KL/MU, rand
 init, 20 perturbations, noise 0.016, itr 5000, k in [14,18]; asserts
 nopt == 16 at :53).
@@ -10,8 +10,7 @@ nopt = 16 — and its per-k statistics depend on MPI seeding correlations
 0.30/0.47/0.69 vs the reference's 0.27/0.48/0.73 at k=14/15/16, nopt = 16
 with comfortable gate margin.  Independent sampling (seed_grid=None, the
 framework default) also selects 16 but sits within 0.02 of the silhouette
-gate — see docs/PARITY.md.  One v5e chip runs this whole sweep in ~90 s;
-the executed 4-rank reference takes ~54 min on the same host.
+gate — see docs/PARITY.md.  The executed 4-rank reference takes ~54 min.
 """
 import os, sys
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))

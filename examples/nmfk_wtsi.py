@@ -1,4 +1,4 @@
-"""NMFk k-selection on wtsi.mat — TPU-native port of the reference example
+"""NMFk k-selection on wtsi.mat — JAX port of the reference example
 examples/dist_pynmfk_1d_wtsi.py (there: mpirun -n 4, 4x1 grid; here: one
 process owning all local devices; the mesh shape only changes shardings).
 

@@ -1,9 +1,8 @@
 """uint8-quantized A storage on the reference's own sample data.
 
 swim.mat is uint8 with max 255, so `a_precision="uint8"` quantizes it
-EXACTLY (scale s = 1) — the solve runs on one quarter the f32 HBM bytes
-(2.8x faster through the fused one-pass kernel on TPU, bench.py /
-docs/PERFORMANCE.md) and the result matches the f32 run to the bf16
+EXACTLY (scale s = 1) — the solve reads one quarter of the f32 bytes of A
+per product, and the result matches the f32 run to the bf16
 matmul-rounding level.
 
 Run: python examples/quantized_swim.py [--cpu]

@@ -1,4 +1,4 @@
-"""Library-API example — TPU-native port of reference examples/
+"""Library-API example — JAX port of reference examples/
 runner_example.py: the Runner object owns hyperparameters; .run() does the
 rest."""
 import os, sys

@@ -1,12 +1,11 @@
 """Very-sparse / beyond-HBM factorization through the ELL gather path.
 
-On TPU the framework picks the execution format for sparse input by a
-measured cost model (ops/sparse.py::densify_for_backend): moderate
-densities densify onto the MXU (faster), while very sparse matrices with
-large m*n — including those whose DENSE form cannot fit HBM at all — run
-the dual-orientation ELL gather path (ops/ell.py) in O(nnz) memory.
-BENCH_r03 factorizes a 100000x100000 matrix (dense f32 = 40 GB) on one
-16 GB chip this way.
+On the GPU the framework picks the execution format for sparse input by a
+cost model measured per device kind (ops/sparse.py::densify_for_backend):
+moderate densities densify (faster), while very sparse matrices with
+large m*n — including those whose DENSE form cannot fit device memory at
+all — run the dual-orientation ELL gather path (ops/ell.py) in O(nnz)
+memory.
 
 This example runs a CPU-sized version of both regimes end to end and
 demonstrates forcing the format explicitly.

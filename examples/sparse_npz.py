@@ -3,8 +3,9 @@
 Builds a scipy.sparse .npz from the reference's swim.mat (35% natural
 zeros), factorizes it through the Runner with ftype='npz', and runs the
 sparse NMFk pipeline on a synthetic planted-k matrix.  Everything runs on
-the nnz triplet on CPU (no dense m x n intermediate); on TPU sparse input
-auto-densifies (docs/ROADMAP.md explains the measured reason).
+the nnz triplet on CPU (no dense m x n intermediate); on the GPU a cost
+model measured per device kind picks dense or the ELL gather path
+(ops/sparse.py::densify_for_backend).
 
 Run: python examples/sparse_npz.py
 """

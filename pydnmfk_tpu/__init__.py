@@ -1,6 +1,6 @@
-"""pydnmfk_tpu — TPU-native distributed NMF with automatic model selection.
+"""pydnmfk_tpu — distributed NMF with automatic model selection, in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of lanl/pyDNMFk:
+A from-scratch JAX/XLA re-design of the capabilities of lanl/pyDNMFk:
 distributed non-negative matrix factorization (Frobenius / KL; MU / HALS /
 BCD) over a 2D device mesh, NNSVD initialization, zero-row/column pruning,
 checkpoint/restart, and the NMFk perturbation-ensemble pipeline with

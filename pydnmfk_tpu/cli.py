@@ -26,7 +26,7 @@ def str2bool(v):
 
 def build_parser():
     p = argparse.ArgumentParser(
-        description="TPU-native distributed NMF/NMFk "
+        description="Distributed NMF/NMFk in JAX "
                     "(python -m pydnmfk_tpu --process=pyDNMFk --p_r=2 --p_c=2 ...)")
     p.add_argument("--process", type=str, default="pyDNMF",
                    help="pyDNMF/pyDNMFk")
@@ -62,9 +62,10 @@ def build_parser():
     p.add_argument("--sill_thr", type=float, default=0.6)
     p.add_argument("--sampling", type=str, default="uniform",
                    help="uniform/poisson")
-    # TPU-specific
+    # beyond the reference surface
     p.add_argument("--multihost", type=str2bool, default=False,
-                   help="call jax.distributed.initialize() first")
+                   help="call jax.distributed.initialize() first (managed "
+                        "clusters that it detects, e.g. SLURM)")
     p.add_argument("--a_precision", type=str, default=None,
                    help="mixed precision: storage dtype for A only "
                         "(e.g. bfloat16); factors/accumulation stay at "
@@ -87,19 +88,18 @@ def build_parser():
                         "inside one solve; an interrupted fit resumes "
                         "from the last chunk (0 = off)")
     p.add_argument("--ensemble_batch", type=int, default=0,
-                   help="NMFk members per batched solve (0 = HBM-auto)")
+                   help="NMFk members per batched solve (0 = sized from "
+                        "device memory)")
     p.add_argument("--matmul_precision", type=str, default=None,
-                   help="dot-operand precision: default = JAX TPU default "
-                        "(bf16-rounded operands, f32 accumulation); "
-                        "'highest' = true-f32 multi-pass dots (~2x "
-                        "per-iteration cost — docs/PERFORMANCE.md)")
+                   help="dot-operand precision: default = XLA's default "
+                        "(on an H100, f32 dots round operands to TF32 and "
+                        "accumulate in f32); 'highest' = true-f32 dots")
     p.add_argument("--bcd_obj", type=str, default=None,
                    help="BCD objective: gram (default, no A-sized pass) "
                         "or residual (reference's explicit m x n pass)")
     p.add_argument("--sparse_grid_format", type=str, default=None,
                    help="sparse execution format on a multi-device grid: "
-                        "auto (default: per-block ELL on TPU when "
-                        "packable), ell, or triplet")
+                        "auto (default: triplet), ell, or triplet")
     p.add_argument("--k_sweep_batch", type=str2bool, default=None,
                    help="batched k-sweep: one compiled solver program for "
                         "every k (default on; false = per-k programs)")

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native distributed NMFk framework.
+"""Typed configuration for the distributed NMFk framework.
 
 Replaces the reference's untyped attribute-bag ``parse`` class and its two
 coexisting calling conventions (CLI ``p_r/p_c/start_k/end_k`` fields vs the
@@ -8,6 +8,7 @@ pyDNMF.py:60-63, pyDNMFk.py:132-135) with a single frozen dataclass pair.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -22,7 +23,7 @@ _PRECISIONS = {
     # nonnegative A (ops/linalg.py::quantize_uint8).  W/H and accumulation
     # stay at `precision`; the solve factorizes Q = round(A/s) and the
     # returned H carries the scale s.  Quarters the dominant HBM traffic
-    # vs f32 (halves vs bf16) through the fused one-pass kernel.
+    # vs f32 (halves vs bf16).
     "uint8": np.uint8,
 }
 
@@ -34,18 +35,24 @@ def ensure_precision_enabled(precision: str) -> None:
         jax.config.update("jax_enable_x64", True)
 
 
-def enable_compilation_cache(path: str = "~/.cache/pydnmfk_tpu_xla") -> None:
-    """Persistent XLA compilation cache: an NMFk sweep compiles one program
-    per (k, shape) — cached, re-runs and restarts skip all compiles."""
-    import os
+# Fixed cache location inside the checkout: a temporary, pid- or
+# time-derived directory would never be found again by the next run.
+_REPO_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
 
+
+def enable_compilation_cache() -> None:
+    """Persistent XLA compilation cache: an NMFk sweep compiles one program
+    per (k, shape) — cached, re-runs and restarts skip all compiles.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX already reads it and
+    no directory is set here; otherwise the cache lives in
+    ``<checkout>/.jax_cache``.
+    """
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          os.path.expanduser(path))
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass  # older jax: flag names differ; cache is an optimization only
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", _REPO_CACHE_DIR)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,42 +77,36 @@ class NMFConfig:
     save_factors: bool = False
     W_update: bool = True
     results_path: str = "results/"
-    # TPU-specific knobs (no reference equivalent):
-    kl_chunk: int = 0        # rows per chunk for the KL m x n intermediate; 0 = no chunking
-    use_pallas: Optional[bool] = None  # None = auto (TPU only)
+    # Knobs beyond the reference surface:
+    # rows per chunk for the KL m x n intermediate; 0 = auto
+    # (models/nmf.py::dense_chunks)
+    kl_chunk: int = 0
     # Mixed precision: storage dtype for A only (e.g. "bfloat16").  W/H and
-    # all accumulation stay at `precision`; matmuls feed the MXU in A's
-    # dtype (ops/linalg.py::matmul), halving the dominant HBM traffic.
+    # all accumulation stay at `precision`; matmuls read A in its storage
+    # dtype (ops/linalg.py::matmul), halving the dominant memory traffic.
     # None = store A at `precision` (reference behavior).
     a_precision: Optional[str] = None
-    # One-pass fused MU kernel (ops/fused_mu.py): None = auto (on for the
-    # HBM-bound bf16-A regime on a single TPU shard, off otherwise — at f32
-    # the kernel loses to XLA, see docs/PERFORMANCE.md).
-    use_fused: Optional[bool] = None
     tol: float = 0.0         # early stop when relative error improves < tol
     tol_check_every: int = 50   # iterations between convergence checks
-    # Dot-operand precision: None = JAX's TPU default (operands rounded to
-    # bf16, f32 accumulation — every golden reproduces under it, and the
-    # MU step runs at the HBM floor).  "highest" computes true-f32
-    # multi-pass dots at ~2x the per-iteration cost (measured 23.6 vs
-    # 11.7 ms/iter at the flagship shape, tools/slope_probe.py) for
-    # bitwise-f32 operand reproducibility.
+    # Dot-operand precision: None = XLA's default.  On an H100 an f32 dot
+    # at the default is a cuBLAS gemm that rounds its operands to TF32
+    # (about 10 mantissa bits, f32 accumulation): an N(0,1) 2048x4096 @
+    # 4096x2048 product lands 2.9e-4 from float64, against 1.1e-6 under
+    # "highest" (chip_smoke.py phase 1 prints both, and the HLO call).
+    # "highest" computes true-f32 dots at a higher per-iteration cost.
     matmul_precision: Optional[str] = None
     # HALS delayed-update block size: 0/None = the reference-structured
-    # column-by-column sweep (default — measured FASTER on the v5e,
-    # where the chain is reduction-bound, not matvec-bound); > 0 runs
-    # exact Gauss-Seidel via LAPACK-style blocked delayed updates
-    # (models/updates.py::hals_step docstring has the measurements).
+    # column-by-column sweep (default); > 0 runs exact Gauss-Seidel via
+    # LAPACK-style blocked delayed updates (models/updates.py::hals_step).
     hals_block: Optional[int] = None
     # Sparse execution format on a multi-device ('r','c') grid:
-    # None = auto (TPU: per-block capped-ELL gather path when the matrix
-    # packs — measured 3-4x the segment_sum triplet rate per nnz; CPU:
-    # triplet, where segment_sum is efficient); "ell" / "triplet" force.
+    # None = the segment_sum triplet (ops/sparse.py::grid_sparse_format);
+    # "ell" forces the per-block capped-ELL gather path.
     sparse_grid_format: Optional[str] = None
     # BCD objective evaluation: None/"gram" computes the per-iteration
     # objective (restore-vs-extrapolate decision only) via the Gram
-    # identity from products the step already has — no third A-sized pass
-    # (measured 1.45x at the flagship geometry); "residual" restores the
+    # identity from products the step already has — no third A-sized
+    # pass; "residual" restores the
     # reference's explicit m x n residual (dist_nmf.py:560).
     bcd_obj: Optional[str] = None
     # Mid-solve checkpointing for long factorizations: > 0 runs the
@@ -167,27 +168,21 @@ class NMFkConfig:
     checkpoint: bool = True
     results_path: str = "results/"
     fname: str = "A"
-    # TPU-specific: how many ensemble members to run as one batched solve.
+    # How many ensemble members to run as one batched solve.
     # 0 = auto — sized from the device memory budget (utils/memory.py) so
-    # the batched ensemble never exceeds HBM; an explicit value overrides.
+    # the batched ensemble never exceeds device memory; an explicit value
+    # overrides.
     # (The reference runs members serially, pyDNMFk.py:226-231 — the
     # equivalent here is ensemble_batch=1.)
     ensemble_batch: int = 0
     # Per-device memory budget in bytes for auto batch sizing; 0 = detect
-    # (device memory_stats / PYDNMFK_HBM_BUDGET env / backend default).
+    # (PYDNMFK_HBM_BUDGET env / device memory_stats).
     hbm_budget: int = 0
-    # Reference-MPI seeding compatibility: the reference seeds numpy
-    # identically on every rank (pyDNMFk.py:32), so on a p_r x p_c grid the
-    # perturbation noise is (p_r, p_c)-tiled and the rand-init factors are
-    # (p_r*p_c)-fold tiled.  Set to that grid to reproduce the reference's
-    # correlated-ensemble statistics (the executed swim golden nopt=16
-    # depends on them — docs/PARITY.md); None = independent sampling (this
-    # framework's default, statistically stronger).  Requires the (possibly
     # Batched k-sweep (None = auto-on for dense A): run every k of the
     # sweep through ONE compiled ensemble program by padding factors to
     # K = max(k_range) columns with a per-member active-column mask
-    # (models/nmfk.py::_ensemble_program_polyk).  Kills the per-k
-    # re-trace that made compile time the dominant sweep cost on TPU;
+    # (models/nmfk.py::_ensemble_program_polyk).  Removes the per-k
+    # re-trace that otherwise makes compile time the dominant sweep cost;
     # the masked trajectory equals the unpadded per-k solve
     # (tests/test_k_sweep.py).  False restores the per-k programs.
     k_sweep_batch: Optional[bool] = None
@@ -199,6 +194,13 @@ class NMFkConfig:
     # reference's seed=pert*1000 shares them).  False keeps one k per
     # ensemble batch.
     k_sweep_merge: Optional[bool] = None
+    # Reference-MPI seeding compatibility: the reference seeds numpy
+    # identically on every rank (pyDNMFk.py:32), so on a p_r x p_c grid the
+    # perturbation noise is (p_r, p_c)-tiled and the rand-init factors are
+    # (p_r*p_c)-fold tiled.  Set to that grid to reproduce the reference's
+    # correlated-ensemble statistics (the executed swim golden nopt=16
+    # depends on them — docs/PARITY.md); None = independent sampling (this
+    # framework's default, statistically stronger).  Requires the (possibly
     # pruned) matrix dims to divide the grid, as the reference's
     # identical-stream property implicitly does.  Poisson sampling draws
     # every grid block with the same key (the counter-based analog of the

@@ -5,7 +5,7 @@ the W factors of p perturbed NMF runs, greedily align the k columns of every
 run to a common centroid ordering (100 fixed alignment iterations, median
 centroids), then score cluster stability with cosine-distance silhouettes.
 
-TPU-native re-design: the whole alignment loop — including the greedy
+Re-design: the whole alignment loop — including the greedy
 quadratic-assignment inner loop — runs as one jit-compiled computation
 (``lax.fori_loop`` over iterations, perturbations, and assignment steps);
 the reference round-trips numpy + MPI allreduce per (iteration,

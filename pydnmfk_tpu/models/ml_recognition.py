@@ -117,7 +117,7 @@ class MLPModel:
 
 class MLFeatureTools:
     """API mirror of reference MLFeaturetools: scan a results dir of per-k
-    results.h5 files, build feature statistics, vote with a sliding-window
+    results.npz files, build feature statistics, vote with a sliding-window
     MLP to predict k."""
 
     def __init__(self, target_dir: str, clf: MLPModel, mis_val: int = 1,
@@ -134,7 +134,7 @@ class MLFeatureTools:
         """Collect per-k stats (reference buildStatistics :35-69): AIC is
         min-max normalized; clusterSilhouetteCoefficients zero-padded to
         max k."""
-        import h5py
+        from ..utils.io import read_cluster_results
         ks = sorted(int(d) for d in os.listdir(self.target_dir)
                     if d.isdigit())
         if not ks:
@@ -150,13 +150,12 @@ class MLFeatureTools:
         self.app_data["clusterSilhouetteCoefficients"] = np.zeros((n, max_k))
         self.app_data["minSilhouetteCoefficients"] = np.zeros(n)
         for i, k in enumerate(ks):
-            with h5py.File(os.path.join(self.target_dir, str(k),
-                                        "results.h5"), "r") as f:
-                sils = np.array(f["clusterSilhouetteCoefficients"])
-                self.app_data["clusterSilhouetteCoefficients"][i, :k] = sils
-                self.app_data["minSilhouetteCoefficients"][i] = sils.min()
-                for s in stats:
-                    self.app_data[s][i] = float(np.array(f[s]))
+            f = read_cluster_results(os.path.join(self.target_dir, str(k)))
+            sils = f["clusterSilhouetteCoefficients"]
+            self.app_data["clusterSilhouetteCoefficients"][i, :k] = sils
+            self.app_data["minSilhouetteCoefficients"][i] = sils.min()
+            for s in stats:
+                self.app_data[s][i] = float(f[s])
         aic = self.app_data["AIC"]
         rng = np.max(aic - np.min(aic))
         self.app_data["AIC"] = (aic - np.min(aic)) / (rng if rng else 1.0)

@@ -1,6 +1,6 @@
 """Single-NMF driver: one factorization A ~= W H for a fixed k.
 
-TPU-native replacement of the reference ``PyNMF`` (pyDNMFk/pyDNMF.py:9-239).
+Replacement of the reference ``PyNMF`` (pyDNMFk/pyDNMF.py:9-239).
 The iteration loop is a single jit-compiled ``lax.fori_loop`` (the reference
 re-instantiates a Python update object per step, pyDNMF.py:154,169); the
 per-topology branches are gone (sharding decides); and solves can be batched
@@ -38,8 +38,7 @@ from . import updates
 # jitted solver (cached per static signature)
 # ---------------------------------------------------------------------------
 def _solve(A, W, H, eps, col_mask=None, *, norm: str, method: str, itr: int,
-           W_update: bool, chunk: int, use_pallas: bool = False,
-           use_fused: bool = False, tol: float = 0.0,
+           W_update: bool, chunk: int, tol: float = 0.0,
            tol_check_every: int = 50, mesh=None, err_chunk: int = 0,
            finalize: bool = True, bcd_obj: str = "gram",
            hals_block=None):
@@ -60,19 +59,10 @@ def _solve(A, W, H, eps, col_mask=None, *, norm: str, method: str, itr: int,
         return (W * col_mask[None, :].astype(W.dtype),
                 H * col_mask[:, None].astype(H.dtype))
     if norm == "fro" and method == "mu":
-        if use_fused and W_update:
-            from ..ops.fused_mu import fused_mu_fro_step
-            step = fused_mu_fro_step
-        else:
-            step = partial(updates.mu_fro_step, W_update=W_update)
+        step = partial(updates.mu_fro_step, W_update=W_update)
     elif norm == "kl" and method == "mu":
-        if use_fused and W_update:
-            # one-pass fused KL iteration: A read once (ops/fused_kl.py)
-            from ..ops.fused_kl import fused_mu_kl_step
-            step = fused_mu_kl_step
-        else:
-            step = partial(updates.mu_kl_step, W_update=W_update,
-                           chunk=chunk, use_pallas=use_pallas, mesh=mesh)
+        step = partial(updates.mu_kl_step, W_update=W_update, chunk=chunk,
+                       mesh=mesh)
     elif norm == "fro" and method == "hals":
         step = partial(updates.hals_step, W_update=W_update,
                        block=hals_block)
@@ -147,16 +137,14 @@ def _solve(A, W, H, eps, col_mask=None, *, norm: str, method: str, itr: int,
 
 
 @lru_cache(maxsize=64)
-def _jitted_solver(norm, method, itr, W_update, chunk, batched,
-                   use_pallas=False, use_fused=False, tol=0.0,
+def _jitted_solver(norm, method, itr, W_update, chunk, batched, tol=0.0,
                    tol_check_every=50, mesh=None, err_chunk=0,
                    finalize=True, bcd_obj="gram", masked=False,
                    hals_block=None):
     """``masked=True`` adds a per-member active-column mask argument
     (b, K) — the K-padded k-sweep path (see _solve's col_mask)."""
     fn = partial(_solve, norm=norm, method=method, itr=itr,
-                 W_update=W_update, chunk=chunk, use_pallas=use_pallas,
-                 use_fused=use_fused, tol=tol,
+                 W_update=W_update, chunk=chunk, tol=tol,
                  tol_check_every=tol_check_every, mesh=mesh,
                  err_chunk=err_chunk, finalize=finalize, bcd_obj=bcd_obj,
                  hals_block=hals_block)
@@ -164,6 +152,23 @@ def _jitted_solver(norm, method, itr, W_update, chunk, batched,
         fn = jax.vmap(fn, in_axes=(0, 0, 0, None, 0) if masked
                       else (0, 0, 0, None))
     return jax.jit(fn)
+
+
+def dense_chunks(A, cfg: NMFConfig, single_shard: bool, sparse_A: bool):
+    """(kl_chunk, err_chunk): the row chunks that bound A-sized temporaries.
+
+    KL's direct path materializes the m x n ratio U; at the headline f32
+    shape U and A together take 17.7 GB, so a large single-shard block
+    auto-chunks when nothing else bounds it (on a mesh the per-device
+    blocks already shrink).  The error passes chunk for the same reason:
+    the final relative_error would otherwise materialize an A-sized W@H."""
+    chunk = cfg.kl_chunk
+    if cfg.norm.lower() == "kl" and not chunk and not sparse_A:
+        chunk = linalg.error_chunk_rows(A.shape[-2], A.shape[-1],
+                                        sharded=not single_shard)
+    err_chunk = 0 if sparse_A else linalg.error_chunk_rows(
+        A.shape[-2], A.shape[-1], sharded=not single_shard)
+    return chunk, err_chunk
 
 
 def solve(A, W, H, eps, cfg: NMFConfig, W_update: Optional[bool] = None,
@@ -178,7 +183,7 @@ def solve(A, W, H, eps, cfg: NMFConfig, W_update: Optional[bool] = None,
                          "batched path uses _jitted_solver(masked=True))")
     if linalg.is_sparse(A):
         from ..ops.sparse import densify_for_backend
-        # TPU: dense MXU vs ELL gather, picked by the measured cost model
+        # dense vs ELL gather, picked by the measured cost model
         A = densify_for_backend(A, k_hint=cfg.k)
     sh = getattr(A, "sharding", None)
     single_shard = getattr(sh, "num_devices", 1) <= 1
@@ -187,69 +192,16 @@ def solve(A, W, H, eps, cfg: NMFConfig, W_update: Optional[bool] = None,
         raise ValueError(
             "sparse A supports MU (fro/kl) and HALS; the BCD objective "
             "needs the dense residual every inner step")
-    # multi-device memory-bounded KL: route the chunked/Pallas kernels
-    # through shard_map on the array's own mesh (ops/kl.py::kl_*_sharded)
+    # multi-device memory-bounded KL: route the chunked products through
+    # shard_map on the array's own mesh (ops/kl.py::kl_*_sharded)
     mesh = None
     if (not single_shard and not batched and cfg.norm.lower() == "kl"
-            and hasattr(sh, "mesh")
-            and (cfg.kl_chunk > 0 or cfg.use_pallas)):
+            and hasattr(sh, "mesh") and cfg.kl_chunk > 0):
         mesh = sh.mesh
-    use_pallas = cfg.use_pallas
-    if use_pallas is None:
-        use_pallas = False      # opt-in (cfg.use_pallas=True); TPU-only
-    if use_pallas and (
-            sparse_A
-            or jax.default_backend() != "tpu"
-            or A.dtype == jnp.float64        # kernels accumulate in f32
-            or A.dtype != W.dtype            # mixed precision: XLA path
-            or (not single_shard and mesh is None)):
-        # sharded Pallas runs per-block under shard_map (needs `mesh`);
-        # the batched-ensemble path stays on the chunked/XLA path
-        use_pallas = False
-    # one-pass fused iterations: auto-on only for the measured wins — FRO
-    # on a single TPU shard with bf16 storage (1.7x over two-pass), uint8
-    # storage (2.3x), or f32 storage under the DEFAULT matmul precision
-    # (1.11x, round 4: the kernel now matches XLA's bf16-operand lowering
-    # for f32 dots — pallas_kernels.matmul_compute_dtype — instead of
-    # paying multi-pass f32 MXU time; a user-requested high precision
-    # keeps the two-pass XLA path, where true-f32 dots are faster).  The
-    # fused KL kernel (ops/fused_kl.py) matches but does not beat the
-    # chunked path at k=32 and stays opt-in.
-    use_fused = cfg.use_fused
-    if use_fused is None:
-        use_fused = (jax.default_backend() == "tpu" and single_shard
-                     and not batched and not sparse_A
-                     and cfg.method.lower() == "mu"
-                     and cfg.norm.lower() == "fro"
-                     and W.shape[-1] <= 64   # (k,n) f32 VMEM accumulator
-                     and (A.dtype == jnp.bfloat16
-                          or (jnp.issubdtype(A.dtype, jnp.integer)
-                              and jnp.dtype(A.dtype).itemsize == 1)
-                          or (A.dtype == jnp.float32
-                              and A.dtype == W.dtype
-                              and cfg.matmul_precision in
-                              (None, "default", "bfloat16", "fastest"))))
-    elif use_fused and (not single_shard or sparse_A):
-        use_fused = False
-    # KL memory safety: the direct path materializes the m x n ratio U —
-    # at flagship f32 scale U + A alone exceed HBM.  Auto-chunk when the
-    # block is large and nothing else bounds it (fused reads A once and
-    # keeps U in VMEM; on a mesh per-device blocks already shrink).
-    chunk = cfg.kl_chunk
-    if (cfg.norm.lower() == "kl" and not chunk and not sparse_A
-            and not (use_fused and (cfg.W_update if W_update is None
-                                    else W_update))):
-        chunk = linalg.error_chunk_rows(A.shape[-2], A.shape[-1],
-                                        sharded=not single_shard)
-    # memory-bounded error passes: the final relative_error would
-    # otherwise materialize an A-sized W@H product (2x 8.8 GB at flagship
-    # f32 scale — more than one v5e HBM)
-    err_chunk = 0 if sparse_A else linalg.error_chunk_rows(
-        A.shape[-2], A.shape[-1], sharded=not single_shard)
+    chunk, err_chunk = dense_chunks(A, cfg, single_shard, sparse_A)
     fn = _jitted_solver(cfg.norm.lower(), cfg.method.lower(), cfg.itr,
                         cfg.W_update if W_update is None else W_update,
-                        chunk, batched, bool(use_pallas),
-                        bool(use_fused), float(cfg.tol),
+                        chunk, batched, float(cfg.tol),
                         int(cfg.tol_check_every), mesh, err_chunk,
                         bool(finalize), cfg.bcd_obj or "gram",
                         hals_block=cfg.hals_block)
@@ -280,8 +232,9 @@ class NMF:
     error -> (unprune).  Mirror of reference ``PyNMF``."""
 
     def __init__(self, cfg: NMFConfig, ctx: Optional[GridContext] = None):
-        from ..config import ensure_precision_enabled
+        from ..config import enable_compilation_cache, ensure_precision_enabled
         ensure_precision_enabled(cfg.precision)
+        enable_compilation_cache()
         self.cfg = cfg
         self.ctx = ctx if ctx is not None else grid_context(*cfg.grid)
         self.recon_err = None
@@ -454,7 +407,7 @@ class NMF:
                 # grid-sharded sparse: W row-sharded, H col-sharded — the
                 # reference's 1D/2D topologies.  Format per config
                 # sparse_grid_format: per-block capped-ELL (ops/ell.py
-                # GridEllSparse, the TPU gather path — VERDICT r4 item 3)
+                # GridEllSparse, the gather path)
                 # or the segment_sum triplet (ops/sparse.py).  (p_e-only
                 # contexts keep the triplet unsharded: the ensemble axis
                 # plays no role in a single solve)

@@ -4,17 +4,18 @@ Reference: ``PyNMFk`` (pyDNMFk/pyDNMFk.py:70-300).  For each k in
 [start_k, end_k]: factorize ``perturbations`` noise-perturbed copies of A,
 cluster the resulting W columns across the ensemble (models/clustering.py),
 regress H against the median factors with W frozen, record per-column error
-distributions + silhouettes + AIC to results.h5, then walk k ascending with
+distributions + silhouettes + AIC to results.npz (and the reference-layout
+results.h5 where h5py is installed), then walk k ascending with
 a Wilcoxon signed-rank test gated on minimum silhouette to select k
 (pvalueAnalysis, pyDNMFk.py:260-300 — replicated decision-for-decision since
 the published golden values nopt=16 (swim) / nopt=4 (wtsi) depend on it).
 
-TPU-native re-design: the reference solves ensemble members *serially*
+Re-design: the reference solves ensemble members *serially*
 (pyDNMFk.py:226-231, its main scaling limitation).  Here the whole ensemble
 is one batched computation — sampling is a vmapped PRNG draw and the NMF
 iteration loop is vmapped over a leading perturbation axis (optionally
 sharded over the mesh 'e' axis) — so one jit-compiled program factorizes all
-perturbations at once on the MXU.
+perturbations at once.
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ from ..parallel.mesh import (GridContext, grid_context, host_local,
                              is_proc0, sync_processes)
 from ..utils.checkpoint import (Checkpoint, FLAG_CLUSTERED, FLAG_PERTS_DONE,
                                 FLAG_RUNNING, FLAG_SAVED)
-from ..utils.io import DataWriter
+from ..utils.io import DataWriter, read_cluster_results
 from ..utils import timing
 from ..utils.memory import auto_ensemble_batch
 from ..utils.pruning import prune_A, unprune_factors
@@ -89,16 +90,15 @@ def _draw_init_factors(ncfg: NMFConfig, keys, A_ens, sg, m, n):
 @functools.lru_cache(maxsize=32)
 def _ensemble_program(ncfg: NMFConfig, b_pad: int, sampling: str,
                       noise_var: float, ctx: GridContext,
-                      shard_batch: bool, use_pallas: bool,
-                      err_chunk: int = 0, seed_grid=None,
-                      use_fused: bool = False):
+                      shard_batch: bool, err_chunk: int = 0,
+                      seed_grid=None):
     eps = ncfg.eps
     a_dtype = ncfg.a_dtype
     sg = None if seed_grid in (None, (1, 1)) else tuple(seed_grid)
 
     solver = nmf_mod._jitted_solver(
         ncfg.norm.lower(), ncfg.method.lower(), ncfg.itr, True,
-        ncfg.kl_chunk, True, use_pallas, use_fused, float(ncfg.tol),
+        ncfg.kl_chunk, True, float(ncfg.tol),
         int(ncfg.tol_check_every), None, err_chunk, True,
         ncfg.bcd_obj or "gram", hals_block=ncfg.hals_block)
 
@@ -187,9 +187,8 @@ def _ensemble_init_rand_program(ncfg: NMFConfig, K: int, m: int, n: int,
 @functools.lru_cache(maxsize=32)
 def _ensemble_program_polyk(ncfg: NMFConfig, sampling: str,
                             noise_var: float, ctx: GridContext,
-                            shard_batch: bool, use_pallas: bool,
-                            err_chunk: int = 0, seed_grid=None,
-                            use_fused: bool = False):
+                            shard_batch: bool, err_chunk: int = 0,
+                            seed_grid=None):
     """K-polymorphic per-batch ensemble program (VERDICT r4 item 1):
     ``ncfg.k`` here is the PADDED width K = max(sweep ks); the true k of
     each member arrives as a boolean column mask (models/nmf._solve
@@ -198,14 +197,14 @@ def _ensemble_program_polyk(ncfg: NMFConfig, sampling: str,
     program therefore serves EVERY k of an NMFk sweep — the reference
     re-enters its serial loop per k (pyDNMFk.py:198-200) and the round-4
     build re-traced this program per k, which made compile time the
-    dominant sweep cost on TPU (docs/PERFORMANCE.md)."""
+    dominant sweep cost."""
     eps = ncfg.eps
     a_dtype = ncfg.a_dtype
     sg = None if seed_grid in (None, (1, 1)) else tuple(seed_grid)
 
     solver = nmf_mod._jitted_solver(
         ncfg.norm.lower(), ncfg.method.lower(), ncfg.itr, True,
-        ncfg.kl_chunk, True, use_pallas, use_fused, float(ncfg.tol),
+        ncfg.kl_chunk, True, float(ncfg.tol),
         int(ncfg.tol_check_every), None, err_chunk, True,
         ncfg.bcd_obj or "gram", masked=True, hals_block=ncfg.hals_block)
 
@@ -280,7 +279,7 @@ def _ensemble_program_sparse(ncfg: NMFConfig, sampling: str,
 def _ensemble_program_sparse_ell(ncfg: NMFConfig,
                                  sampling: str, noise_var: float,
                                  m: int, n: int):
-    """Per-batch ensemble program for ELL-format sparse A (the TPU
+    """Per-batch ensemble program for ELL-format sparse A (the
     very-sparse / beyond-HBM regime, ops/ell.py): members perturb the
     flat COO data vector (identical noise streams to the BCOO path) and
     gather it into BOTH ELL orientations through the slot->nnz perms,
@@ -320,10 +319,8 @@ def _ensemble_program_sparse_ell(ncfg: NMFConfig,
                 tol_check_every=int(ncfg.tol_check_every),
                 hals_block=ncfg.hals_block)
 
-        from ..ops.ell import ell_pallas_disabled
-        with ell_pallas_disabled():      # vmapped pallas_call: XLA path
-            return jax.vmap(member)(rvals_b, rtail_b, cvals_b, ctail_b,
-                                    W0, H0, kmask)
+        return jax.vmap(member)(rvals_b, rtail_b, cvals_b, ctail_b,
+                                W0, H0, kmask)
 
     return jax.jit(program)
 
@@ -339,9 +336,9 @@ def _ensemble_program_sparse_grid_ell(ncfg: NMFConfig,
     path), then vmap through _solve — with p_e > 1 the member axis is
     sharded over 'e' via ``vmap(spmd_axis_name)``, composing with the
     per-block shard_map gather products (ops/ell.py::gell_*) for full
-    three-way ('e','r','c') parallelism on the very-sparse TPU path."""
+    three-way ('e','r','c') parallelism on the very-sparse path."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from ..ops.ell import GridEllSparse, ell_pallas_disabled
+    from ..ops.ell import GridEllSparse
     from ..parallel.mesh import COL_AXIS, ENSEMBLE_AXIS, ROW_AXIS
     e_ax = ENSEMBLE_AXIS if ctx.p_e > 1 else None
 
@@ -389,9 +386,8 @@ def _ensemble_program_sparse_grid_ell(ncfg: NMFConfig,
                 tol_check_every=int(ncfg.tol_check_every),
                 hals_block=ncfg.hals_block)
 
-        with ell_pallas_disabled():      # vmapped pallas_call: XLA path
-            return jax.vmap(member, spmd_axis_name=e_ax)(
-                rv_b, rt_b, cv_b, ct_b, W0, H0, kmask)
+        return jax.vmap(member, spmd_axis_name=e_ax)(
+            rv_b, rt_b, cv_b, ct_b, W0, H0, kmask)
 
     return jax.jit(program)
 
@@ -660,7 +656,7 @@ class NMFk:
         if linalg.is_sparse(A) and not bundle:
             from ..ops.ell import EllSparse, ell_pack
             from ..ops.sparse import densify_for_backend
-            # single-device TPU: the measured policy picks dense-MXU vs
+            # single-device accelerator: the measured policy picks dense vs
             # the ELL gather path (dense/ELL member costs scale with the
             # batch identically, so the single-solve crossover holds);
             # multi-device grids and CPU keep the BCOO triplet paths
@@ -731,21 +727,16 @@ class NMFk:
         elif self._sparse and self.ctx.shape != (1, 1):
             # grid-sharded sparse, built once: the ensemble batches data
             # vectors over the shared block slot->nnz perms.  Format per
-            # sparse_grid_format (VERDICT r4 item 3): per-block capped-ELL
-            # (the TPU gather path) when packable, else the segment_sum
+            # sparse_grid_format (ops/sparse.py::grid_sparse_format):
+            # per-block capped-ELL when packable, else the segment_sum
             # triplet
-            f = (cfg.nmf.sparse_grid_format or "").lower() or None
-            if f not in (None, "ell", "triplet"):
-                raise ValueError(
-                    f"sparse_grid_format must be 'ell' or 'triplet', "
-                    f"got {cfg.nmf.sparse_grid_format!r}")
-            if f == "ell" or (f is None
-                              and jax.default_backend() == "tpu"):
+            from ..ops.sparse import grid_sparse_format
+            if grid_sparse_format(cfg.nmf.sparse_grid_format) == "ell":
                 from ..ops.ell import grid_ell_pack
                 packed = grid_ell_pack(A, self.ctx, return_perms=True)
                 if packed is not None:
                     self._grid_ell = packed
-                elif f == "ell":
+                elif cfg.nmf.sparse_grid_format:
                     raise ValueError(
                         "sparse_grid_format='ell' but the matrix does "
                         "not ELL-pack; use 'triplet'")
@@ -827,37 +818,15 @@ class NMFk:
         batch = max(1, min(batch, cap))
         return max(p_e, (batch // p_e) * p_e)
 
-    def _dense_gating(self, A, ncfg, size_k):
-        """(ncfg', use_pallas, use_fused, err_chunk): shared dense-path
-        solve policy — KL-chunk memory bound, pallas/fused kernel gating
-        (mirrors nmf.solve; vmapped Pallas is supported — measured 1.5x
-        for the fused FRO bf16-A path, tools/batched_fused_probe.py).
-        Used by both the sequential and the merged ensemble drivers."""
+    def _dense_gating(self, A, ncfg):
+        """(ncfg', err_chunk): the dense-path chunk policy of nmf.solve
+        (models/nmf.py::dense_chunks) for the batched ensemble.  The KL
+        chunk is fixed in ncfg before batch sizing, so the memory model
+        sees the bounded per-member ratio slab, not a full-m U."""
         sh = getattr(A, "sharding", None)
         single_shard = getattr(sh, "num_devices", 1) <= 1
-        if ncfg.norm.lower() == "kl" and not ncfg.kl_chunk:
-            # KL memory safety for the batched path too: bound the per-
-            # member m x n ratio slab before batch sizing so the cost
-            # model sees the bounded slab, not a full-m U
-            kc = linalg.error_chunk_rows(A.shape[0], A.shape[1],
-                                         sharded=not single_shard)
-            if kc:
-                ncfg = ncfg.replace(kl_chunk=kc)
-        use_pallas = bool(self.cfg.nmf.use_pallas) and (
-            jax.default_backend() == "tpu" and single_shard
-            and jnp.dtype(ncfg.a_dtype) == jnp.dtype(ncfg.dtype)
-            and ncfg.dtype != jnp.float64)
-        use_fused = ncfg.use_fused
-        if use_fused is None:
-            use_fused = (jax.default_backend() == "tpu" and single_shard
-                         and ncfg.method.lower() == "mu"
-                         and ncfg.norm.lower() == "fro"
-                         and size_k <= 64  # (k,n) f32 VMEM accumulator
-                         and jnp.dtype(ncfg.a_dtype) == jnp.bfloat16)
-        use_fused = bool(use_fused) and single_shard
-        err_chunk = linalg.error_chunk_rows(A.shape[0], A.shape[1],
-                                            sharded=not single_shard)
-        return ncfg, use_pallas, use_fused, err_chunk
+        kc, err_chunk = nmf_mod.dense_chunks(A, ncfg, single_shard, False)
+        return ncfg.replace(kl_chunk=kc), err_chunk
 
     def _save_part(self, parts_dir, off, W_b, H_b, e_b, seed, tag):
         if jax.process_count() > 1:
@@ -883,14 +852,11 @@ class NMFk:
         n_pert = cfg.perturbations
         p_e = self.ctx.p_e
         sparse_A = linalg.is_sparse(A)
-        # polyk sweep: members are K-padded, so memory/fused gating see K
+        # polyk sweep: members are K-padded, so memory sizing sees K
         size_k = self._polyk_K or k
-        if sparse_A:
-            use_pallas = use_fused = False
-            err_chunk = 0
-        else:
-            ncfg, use_pallas, use_fused, err_chunk = self._dense_gating(
-                A, ncfg, size_k)
+        err_chunk = 0
+        if not sparse_A:
+            ncfg, err_chunk = self._dense_gating(A, ncfg)
         batch = self._ensemble_batch_size(A, size_k, ncfg)
         key = jax.random.key(ncfg.seed)
         self.last_batch_size = batch
@@ -975,13 +941,12 @@ class NMFk:
                     program = _ensemble_program_polyk(
                         ncfg.replace(k=K), cfg.sampling,
                         float(cfg.noise_var), self.ctx, p_e > 1,
-                        use_pallas, err_chunk, cfg.seed_grid, use_fused)
+                        err_chunk, cfg.seed_grid)
                     W, H, errs = program(A, key, midx, W0, H0, kmask)
                 else:
                     program = _ensemble_program(
                         ncfg, b_pad, cfg.sampling, float(cfg.noise_var),
-                        self.ctx, p_e > 1, use_pallas, err_chunk,
-                        cfg.seed_grid, use_fused)
+                        self.ctx, p_e > 1, err_chunk, cfg.seed_grid)
                     W, H, errs = program(A, key, done)
             if (self._polyk_K or k) > k:
                 W = W[:, :, :k]    # slice the K padding back off
@@ -1029,13 +994,9 @@ class NMFk:
         p_e = self.ctx.p_e
         key = jax.random.key(cfg.nmf.seed)
         sparse_A = linalg.is_sparse(A)
-        if sparse_A:
-            ncfg0 = cfg.nmf.replace(k=K)
-            use_pallas = use_fused = False
-            err_chunk = 0
-        else:
-            ncfg0, use_pallas, use_fused, err_chunk = self._dense_gating(
-                A, cfg.nmf.replace(k=K), K)
+        ncfg0, err_chunk = cfg.nmf.replace(k=K), 0
+        if not sparse_A:
+            ncfg0, err_chunk = self._dense_gating(A, ncfg0)
         batch = self._ensemble_batch_size(A, K, ncfg0,
                                           max_members=n_pert * len(ks))
         self.last_batch_size = batch
@@ -1047,8 +1008,8 @@ class NMFk:
         if not sparse_A:
             run_batch = lambda midx, W0, H0, kmask: _ensemble_program_polyk(
                 ncfg_K, cfg.sampling, float(cfg.noise_var), self.ctx,
-                p_e > 1, use_pallas, err_chunk, cfg.seed_grid, use_fused
-            )(A, key, midx, W0, H0, kmask)
+                p_e > 1, err_chunk, cfg.seed_grid)(A, key, midx, W0, H0,
+                                                   kmask)
         elif self._grid_ell is not None:
             E, rperm, cperm, rtperm, ctperm = self._grid_ell
             run_batch = (lambda midx, W0, H0, kmask:
@@ -1310,12 +1271,12 @@ class NMFk:
             writer.save_cluster_results(stats, config=run_cfg)
         self.per_k_stats[k] = stats
         self.checkpoint.save(FLAG_SAVED, cfg.perturbations, k, seed)
-        # this k's stats are on disk (results.h5 + factors): the resume
+        # this k's stats are on disk (results.npz + factors): the resume
         # parts have served their purpose (each process removes its own
         # shard files; proc0 sweeps whatever remains)
         shutil.rmtree(os.path.join(k_path, "ensemble_parts"),
                       ignore_errors=True)
-        # every process must see this k's files (results.h5 feeds the
+        # every process must see this k's files (results.npz feeds the
         # Wilcoxon walk and resume on all of them) before moving on
         sync_processes(f"pydnmfk_per_k_{k}")
         return stats
@@ -1324,19 +1285,18 @@ class NMFk:
     def pvalue_analysis(self) -> int:
         """Wilcoxon walk over the recorded per-k column-error distributions
         (reference pvalueAnalysis, pyDNMFk.py:260-300 — exact replica of the
-        decision logic, re-reading results.h5 so it works after restart)."""
+        decision logic, re-reading each k's results.npz so it works after
+        restart)."""
         from scipy.stats import wilcoxon
-        import h5py
 
         cfg = self.cfg
         ks = list(cfg.k_range)
         sill_min, err_dists = [], []
         for k in ks:
-            with h5py.File(os.path.join(self.results_path, str(k),
-                                        "results.h5"), "r") as f:
-                err_dists.append(np.array(f["L_err"]))
-                sill_min.append(round(float(
-                    np.min(np.array(f["clusterSilhouetteCoefficients"]))), 2))
+            f = read_cluster_results(os.path.join(self.results_path, str(k)))
+            err_dists.append(f["L_err"])
+            sill_min.append(round(float(
+                np.min(f["clusterSilhouetteCoefficients"])), 2))
 
         pvalue = np.ones(len(ks))
         best_err = err_dists[0]

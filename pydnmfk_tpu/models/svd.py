@@ -8,7 +8,7 @@ Its scale property worth keeping: A stays rank-sharded throughout — Gram and
 A@v products are local-matmul + allreduce (dist_svd.py:89-94, :112-115,
 :170-181), so nnsvd init works at any scale the grid reaches.
 
-TPU-native re-design: one sharded Gram matmul (psum over the mesh) followed
+Re-design: one sharded Gram matmul (psum over the mesh) followed
 by a single dense ``eigh`` of the (min_dim x min_dim) Gram — all k triplets
 at once, no deflation loop, strictly better numerics — with a randomized
 subspace-iteration path when min(m, n) is too large to replicate.  The mesh

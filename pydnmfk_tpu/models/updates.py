@@ -1,6 +1,6 @@
 """One-step NMF update rules (MU-Fro, MU-KL, HALS) and the BCD solver.
 
-TPU-native re-design of the reference update kernels
+Re-design of the reference update kernels
 (pyDNMFk/dist_nmf.py).  Two deliberate structural departures:
 
 * **No 1D/2D split.**  The reference implements every rule twice
@@ -48,16 +48,15 @@ def mu_fro_step(A, W, H, eps, W_update=True):
 # Multiplicative updates, KL divergence  (reference KL_MU_update_{W,H}:
 # 1D dist_nmf.py:803-849, 2D :293-407)
 # ---------------------------------------------------------------------------
-def mu_kl_step(A, W, H, eps, W_update=True, chunk=0, use_pallas=False,
-               mesh=None):
+def mu_kl_step(A, W, H, eps, W_update=True, chunk=0, mesh=None):
     """``mesh`` routes the two bounded-memory products through shard_map
-    (ops/kl.py::kl_*_sharded) so the chunked/Pallas single-shard kernels run
+    (ops/kl.py::kl_*_sharded) so the chunked single-shard products run
     per device block — the multi-device equivalent of the reference's 2D KL
     path (dist_nmf.py:293-343) without a full m x n intermediate."""
     if linalg.is_sparse(A):
         # triplet path: U shares A's sparsity pattern exactly (0/x == 0),
         # so both products touch only nnz entries (ops/sparse.py); the
-        # chunk/Pallas/mesh machinery is dense-only and unused here.
+        # chunk/mesh machinery is dense-only and unused here.
         # Row-sharded triplets run per block under shard_map (the dense
         # 1D topology's collective contract).
         from ..ops.ell import (EllSparse, GridEllSparse, ell_kl_uht,
@@ -80,13 +79,11 @@ def mu_kl_step(A, W, H, eps, W_update=True, chunk=0, use_pallas=False,
             wtu = lambda a, w, h: kl_wtu_sparse(a, w, h, eps, nc)
     elif mesh is not None:
         from ..ops.kl import kl_uht_sharded, kl_wtu_sharded
-        uht = lambda a, w, h: kl_uht_sharded(a, w, h, eps, mesh, chunk,
-                                             use_pallas)
-        wtu = lambda a, w, h: kl_wtu_sharded(a, w, h, eps, mesh, chunk,
-                                             use_pallas)
+        uht = lambda a, w, h: kl_uht_sharded(a, w, h, eps, mesh, chunk)
+        wtu = lambda a, w, h: kl_wtu_sharded(a, w, h, eps, mesh, chunk)
     else:
-        uht = lambda a, w, h: kl_uht(a, w, h, eps, chunk, use_pallas)
-        wtu = lambda a, w, h: kl_wtu(a, w, h, eps, chunk, use_pallas)
+        uht = lambda a, w, h: kl_uht(a, w, h, eps, chunk)
+        wtu = lambda a, w, h: kl_wtu(a, w, h, eps, chunk)
     if W_update:
         h_rowsum = linalg.sum_axis(H, axis=1)       # (k,) psum over 'c'
         UHT = uht(A, W, H)                          # (m,k)
@@ -134,12 +131,11 @@ def _hals_h_rows(H, WTW, WTA, eps, lo, hi):
 def _hals_w_blocked(W, HHT, AHT, eps, B):
     """EXACT Gauss-Seidel W sweep via LAPACK-style blocked delayed
     updates: the per-column (m, k) matvec against the half-updated W is
-    decomposed into P = W_old @ HHT (one MXU matmul), an in-block (m, B)
-    correction matvec per column, and one rank-B MXU update of P per
+    decomposed into P = W_old @ HHT (one matmul), an in-block (m, B)
+    correction matvec per column, and one rank-B update of P per
     block.  Algebraically identical to the column-by-column sweep (only
     summation order differs); the serial chain's per-column work drops
-    from m*k to m*B, which is what binds the k=256 bf16 HALS row
-    (docs/PERFORMANCE.md; VERDICT r4 item 6)."""
+    from m*k to m*B, for large k where that matvec chain binds."""
     m, k = W.shape
     nb = k // B
     P = linalg.matmul(W, HHT)                        # (m, k), W = old
@@ -219,14 +215,9 @@ def hals_step(A, W, H, eps, W_update=True, block=None):
     update order; only fp summation order differs —
     tests/test_nmf_solvers.py pins sweep-level equality).
 
-    Measured on the v5e (tools/hals_block_probe.py, flagship
-    57600x38400 k=256 per 10 iters): bf16-A 0.240 s unblocked vs
-    0.255-0.277 s for B in {8..64}; f32 0.273 vs 0.299.  The serial
-    chain is bound by its per-column reductions/dispatch, NOT by the
-    (m, k) matvec FLOPs this restructure removes — so blocking adds the
-    P-matrix traffic and rank-B updates without relieving the real
-    bottleneck, and stays OPT-IN for hardware where the matvec chain
-    does bind (VERDICT r4 item 6: measured, not shipped as default)."""
+    Blocking trades the per-column (m, k) matvec for an extra P-matrix
+    pass and rank-B updates; it pays only where the matvec chain binds,
+    so it stays opt-in (tools/hals_block_probe.py times both)."""
     k = W.shape[1]
     B = block or 0
 

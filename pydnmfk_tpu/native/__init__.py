@@ -1,7 +1,7 @@
 """Native (C) runtime components.
 
 The reference's only native dependency is OpenMPI (reached via mpi4py);
-its TPU-native equivalent is the XLA runtime itself.  The one runtime
+its equivalent here is the XLA runtime itself.  The one runtime
 component this framework adds in C is the data-loader block reader
 (blockio.c): GIL-free strided pread of a single grid block from .npy files,
 replacing the reference's read-everything-then-slice loader

@@ -1,15 +1,12 @@
-"""ELL-packed sparse A: the TPU compute format for the VERY sparse regime.
+"""ELL-packed sparse A: the accelerator compute format for the VERY sparse
+regime.
 
-Measured on the v5e (tools/sparse_probe.py, gather_stack_probe.py):
-element-level sparse products on TPU are gather-bound — XLA's row gather
-is ROW-WIDTH-bound at ~3.4 ns per gathered slot for narrow (k<=32) rows,
-going byte-bound (~114 GB/s) from ~256-byte rows — while the dense MXU
-path streams A at HBM bandwidth.  This is the hardware's narrow-row
-random-access limit, not an XLA artifact (settled round 4 —
-docs/PERFORMANCE.md "sparse roofline").  ELL wins for very sparse
+Element-level sparse products on an accelerator are gather-bound: each
+stored entry gathers one k-wide factor row at a random offset, while the
+dense path streams A at full memory bandwidth.  ELL wins for very sparse
 matrices with large m·n, and in the beyond-HBM regime where dense cannot
 run at all; ``densify_for_backend`` (ops/sparse.py) applies the measured
-cost model (``ell_time_model``) automatically.
+per-device cost model (``ell_time_model``) automatically.
 
 Format: CAPPED-WIDTH ELLPACK in BOTH orientations plus COO tails:
 
@@ -184,11 +181,10 @@ def _take_rows(table, flat_idx):
     """table[(S,)-indices] -> (S, k), with a batching rule that stacks
     member tables into ONE wide gather when the indices are shared.
 
-    Evidence (docs/PERFORMANCE.md "sparse roofline" + tools/ell_stack_ab
-    + BENCH r4): the isolated product pair A/Bs at 1.00x, but inside the
-    full compiled ensemble solve (the fori_loop + error program) the
-    default batched gather lowers much worse — the b=8 ELL ensemble runs
-    0.112 s/member without this rule vs 0.064 with it (1.74x)."""
+    Inside the full compiled ensemble solve (the fori_loop + error
+    program) the default batched gather lowers to b narrow gathers; one
+    wide gather of the stacked tables reads each index once
+    (tools/ell_stack_ab.py times both)."""
     return jnp.take(table, flat_idx, axis=0)
 
 
@@ -250,50 +246,9 @@ def _gather_product(vals, idx, M, ratio_with=None, eps=0.0):
     return out
 
 
-# ---------------------------------------------------------------------------
-# Pallas dispatch (ops/pallas_ell.py): the VMEM-table-gather kernel is
-# CORRECT (interpret-mode tests) but NOT COMPILABLE on this toolchain —
-# Mosaic's only gather is tpu.dynamic_gather over same-shape 2-D operands,
-# and every configuration beyond a single-register 128-lane shuffle
-# crashes the backend compiler (measured, tools/gather_forms_probe*.py).
-# The dispatch therefore stays opt-in (PYDNMFK_PALLAS_ELL=1) until Mosaic
-# grows table gathers; the measured TPU-side win shipped instead is the
-# stacked-member batched gather (_take_rows above).
-# ---------------------------------------------------------------------------
-_PALLAS_ELL_OFF = False
-
-
-class ell_pallas_disabled:
-    def __enter__(self):
-        global _PALLAS_ELL_OFF
-        self._prev = _PALLAS_ELL_OFF
-        _PALLAS_ELL_OFF = True
-
-    def __exit__(self, *exc):
-        global _PALLAS_ELL_OFF
-        _PALLAS_ELL_OFF = self._prev
-
-
-def _try_pallas(vals, idx, M, ratio_with=None, eps=None):
-    """Pallas VMEM-gather product, or None when the XLA path must run."""
-    import os
-    if not os.environ.get("PYDNMFK_PALLAS_ELL"):
-        return None                      # Mosaic cannot compile it (above)
-    if _PALLAS_ELL_OFF or jax.default_backend() != "tpu":
-        return None
-    if jnp.result_type(M.dtype, vals.dtype) == jnp.float64:
-        return None                      # kernels accumulate in f32
-    from .pallas_ell import table_fits_vmem, ell_gather_product
-    if not table_fits_vmem(M.shape[0], M.shape[1]):
-        return None
-    return ell_gather_product(vals, idx, M, ratio_with, eps=eps)
-
-
 def ell_a_ht(A: EllSparse, H):
     """A @ H^T -> (m, k)."""
-    out = _try_pallas(A.rvals, A.rcols, H.T)
-    if out is None:
-        out = _gather_product(A.rvals, A.rcols, H.T)
+    out = _gather_product(A.rvals, A.rcols, H.T)
     if A.rtail_d.shape[0]:
         from .sparse import a_ht
         out = out + a_ht(A.rtail_d, A.rtail_r, A.rtail_c, H, A.shape[0])
@@ -302,9 +257,7 @@ def ell_a_ht(A: EllSparse, H):
 
 def ell_wt_a(A: EllSparse, W):
     """W^T @ A -> (k, n)."""
-    out = _try_pallas(A.cvals, A.crows, W)
-    if out is None:
-        out = _gather_product(A.cvals, A.crows, W)
+    out = _gather_product(A.cvals, A.crows, W)
     if A.ctail_d.shape[0]:
         from .sparse import wt_a
         out = out + wt_a(A.ctail_d, A.ctail_r, A.ctail_c, W,
@@ -314,9 +267,7 @@ def ell_wt_a(A: EllSparse, W):
 
 def ell_kl_uht(A: EllSparse, W, H, eps):
     """(A / (WH + eps)) @ H^T -> (m, k); U shares A's sparsity pattern."""
-    out = _try_pallas(A.rvals, A.rcols, H.T, ratio_with=W, eps=eps)
-    if out is None:
-        out = _gather_product(A.rvals, A.rcols, H.T, ratio_with=W, eps=eps)
+    out = _gather_product(A.rvals, A.rcols, H.T, ratio_with=W, eps=eps)
     if A.rtail_d.shape[0]:
         from .sparse import a_ht, sddmm
         wh = sddmm(W, H, A.rtail_r, A.rtail_c)
@@ -327,9 +278,7 @@ def ell_kl_uht(A: EllSparse, W, H, eps):
 
 def ell_kl_wtu(A: EllSparse, W, H, eps):
     """W^T @ (A / (WH + eps)) -> (k, n)."""
-    out = _try_pallas(A.cvals, A.crows, W, ratio_with=H.T, eps=eps)
-    if out is None:
-        out = _gather_product(A.cvals, A.crows, W, ratio_with=H.T, eps=eps)
+    out = _gather_product(A.cvals, A.crows, W, ratio_with=H.T, eps=eps)
     if A.ctail_d.shape[0]:
         from .sparse import sddmm, wt_a
         wh = sddmm(W, H, A.ctail_r, A.ctail_c)
@@ -349,17 +298,16 @@ def ell_col_sqsum(A: EllSparse):
 
 
 # ---------------------------------------------------------------------------
-# GRID-sharded capped-ELL (VERDICT r4 item 3): per-block dual-ELL (+COO
-# tails) under shard_map, so the very-sparse TPU gather path runs on
-# ('r','c') meshes — and, via the NMFk ensemble's vmap(spmd_axis_name='e'),
-# in three-way ('e','r','c') parallelism — instead of falling back to the
-# segment_sum triplet path (measured ~3-4x slower per nnz,
-# docs/PERFORMANCE.md "Sparse on TPU").  Device (i, j) holds block
-# (i, j)'s rows/columns ELL-packed with block-LOCAL indices; widths and
-# tail lengths are shared across blocks (SPMD-uniform shapes), padding
-# slots carry zero values (inert in every product).  Collective contract
-# matches the dense/triplet paths: A Hᵀ partials psum over 'c', Wᵀ A /
-# column reductions psum over 'r' (reference dist_nmf.py:144-205).
+# GRID-sharded capped-ELL: per-block dual-ELL (+COO tails) under
+# shard_map, so the very-sparse gather path runs on ('r','c') meshes —
+# and, via the NMFk ensemble's vmap(spmd_axis_name='e'), in three-way
+# ('e','r','c') parallelism — beside the segment_sum triplet path
+# (ops/sparse.py::grid_sparse_format picks between them).  Device (i, j)
+# holds block (i, j)'s rows/columns ELL-packed with block-LOCAL indices;
+# widths and tail lengths are shared across blocks (SPMD-uniform shapes),
+# padding slots carry zero values (inert in every product).  Collective
+# contract matches the dense/triplet paths: A Hᵀ partials psum over 'c',
+# Wᵀ A / column reductions psum over 'r' (reference dist_nmf.py:144-205).
 # ---------------------------------------------------------------------------
 @jax.tree_util.register_pytree_node_class
 class GridEllSparse:
@@ -644,21 +592,45 @@ def gell_sqnorm(A: GridEllSparse):
     return _gell_shard_map(local, A, ("rvals", "rtail_d"), [], P())
 
 
-def ell_time_model(m: int, n: int, nse: int, k: int,
-                   a_bytes: int = 4) -> tuple:
-    """(t_ell, t_dense) rough per-product seconds on one v5e.
+# Per-device constants of the sparse cost model, keyed by
+# ``jax.Device.device_kind``.  tools/sparse_probe.py measures every field.
+#   floor_s    fixed cost of one gather product (launch + fusion overhead)
+#   slot_s     seconds per gathered slot while rows are narrow (k*4 bytes
+#              below the gather's byte-bound width)
+#   gather_Bps gathered bytes per second once rows are wide
+#   dense_Bps  bytes per second the dense A@Hᵀ product streams A at
+SPARSE_COST_TABLE = {
+    "NVIDIA H100 80GB HBM3": {
+        "floor_s": 1.0909449999848188e-04,
+        "slot_s": 6.236058189797361e-11,
+        "gather_Bps": 3.3082630368516646e12,
+        "dense_Bps": 1.7310096502069954e12,
+        "source": "tools/sparse_probe.py on an NVIDIA H100 80GB HBM3 "
+                  "at a 700 W power limit",
+    },
+}
 
-    Refined round 4 (tools/gather_forms_probe*.py, gather_stack_probe.py):
-    the XLA gather is ROW-WIDTH-bound — ~3.4 ns per gathered slot for
-    narrow rows (k <= 32, 128 B), byte-bound at ~114 GB/s once rows reach
-    ~256 B (k >= 64 f32) — plus a ~3 ms per-product dispatch/fusion floor
-    (measured: at 16384^2 d=5e-4 the ELL solve is overhead-bound and
-    loses to dense).  Dense streams A at ~700 GB/s on the MXU path.  Net:
-    ELL wins for very sparse matrices with LARGE m*n (>~10^9 elements)
-    and always in the beyond-HBM regime.  The batched ensemble gathers
-    faster per member (stacked-member rule, _take_rows: ~1.3 ns/slot at
-    b=16) — this single-solve model is the conservative bound.  Used by
-    the densify policy; coarse on purpose."""
-    t_ell = 3e-3 + nse * max(3.4e-9, k * 4 / 114e9)
-    t_dense = m * n * a_bytes / 700e9
+
+def ell_time_model(m: int, n: int, nse: int, k: int, a_bytes: int = 4,
+                   device_kind: str = None) -> tuple:
+    """(t_ell, t_dense): rough seconds of one A-sized product as an ELL
+    gather and as a dense stream of A, on ``device_kind`` (default: the
+    first device).  The gather costs a per-product floor plus one k-wide
+    factor row per stored entry, bound by the slot rate for narrow rows
+    and by gathered bytes for wide ones; the dense product streams
+    m·n·a_bytes.  Coarse on purpose: it only orders the two formats for
+    the densify policy.  A device kind that was never measured is an
+    error, never a default."""
+    if device_kind is None:
+        import jax
+        device_kind = jax.devices()[0].device_kind
+    c = SPARSE_COST_TABLE.get(device_kind)
+    if c is None:
+        raise ValueError(
+            f"no sparse cost constants for device kind {device_kind!r} "
+            f"(measured: {sorted(SPARSE_COST_TABLE)}); run "
+            "tools/sparse_probe.py on it and add its row to "
+            "ops/ell.py::SPARSE_COST_TABLE")
+    t_ell = c["floor_s"] + nse * max(c["slot_s"], k * 4 / c["gather_Bps"])
+    t_dense = m * n * a_bytes / c["dense_Bps"]
     return t_ell, t_dense

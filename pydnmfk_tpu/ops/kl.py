@@ -12,9 +12,7 @@ The reference materializes the full local m x n ratio block every iteration
 (XLA fuses the divide into the surrounding ops, and U is the same size as the
 dense A that is already resident), but a chunked path bounds the intermediate
 to ``chunk`` rows at a time via ``lax.scan`` — the flash-attention-style
-fix for very large m where 2x A-sized HBM traffic is the bottleneck.
-A fused Pallas kernel (ops/pallas_kernels.py) replaces this on TPU when
-enabled, keeping U entirely in VMEM tiles.
+fix for very large m where an A-sized U does not fit beside A.
 """
 from __future__ import annotations
 
@@ -35,46 +33,37 @@ def _ratio(A, W, H, eps):
 
 
 def kl_uht(A: jax.Array, W: jax.Array, H: jax.Array, eps: float,
-           chunk: int = 0, use_pallas: bool = False) -> jax.Array:
-    """(A / (W H + eps)) @ H^T without materializing U when chunk > 0 or
-    use_pallas (TPU fused kernel)."""
-    if use_pallas:
-        from .pallas_kernels import kl_uht_pallas
-        return kl_uht_pallas(A, W, H, eps)
+           chunk: int = 0) -> jax.Array:
+    """(A / (W H + eps)) @ H^T without materializing U when chunk > 0."""
     if not chunk or chunk >= A.shape[0]:
         return matmul(_ratio(A, W, H, eps), H.T)
     return _chunked(A, W, H, eps, chunk, want="uht")
 
 
 def kl_wtu(A: jax.Array, W: jax.Array, H: jax.Array, eps: float,
-           chunk: int = 0, use_pallas: bool = False) -> jax.Array:
-    """W^T @ (A / (W H + eps)) without materializing U when chunk > 0 or
-    use_pallas (TPU fused kernel)."""
-    if use_pallas:
-        from .pallas_kernels import kl_wtu_pallas
-        return kl_wtu_pallas(A, W, H, eps)
+           chunk: int = 0) -> jax.Array:
+    """W^T @ (A / (W H + eps)) without materializing U when chunk > 0."""
     if not chunk or chunk >= A.shape[0]:
         return matmul(W.T, _ratio(A, W, H, eps))
     return _chunked(A, W, H, eps, chunk, want="wtu")
 
 
-def kl_uht_sharded(A, W, H, eps, mesh, chunk: int = 0,
-                   use_pallas: bool = False):
+def kl_uht_sharded(A, W, H, eps, mesh, chunk: int = 0):
     """Memory-bounded UHT on a device mesh.
 
-    shard_map over the (r, c) grid: each device computes its *local* bounded
-    product (chunked scan or fused Pallas kernel — the single-shard paths
-    above) on its A block, then psums over 'c'.  This is exactly the
+    shard_map over the (r, c) grid: each device computes its *local*
+    bounded product (the chunked scan above) on its A block, then psums
+    over 'c'.  This is exactly the
     collective contract of the reference's 2D KL path (UHT_glob,
     dist_nmf.py:320-343: local U block -> Reduce_scatter over the column
     communicator) with the full m x n intermediate never materialized —
-    per device only a (chunk, n_local) slab (or a VMEM tile) lives.
+    per device only a (chunk, n_local) slab lives.
     """
     from jax.sharding import PartitionSpec as P
     from ..parallel.mesh import COL_AXIS, ROW_AXIS
 
     def local(a, w, h):
-        part = kl_uht(a, w, h, eps, chunk=chunk, use_pallas=use_pallas)
+        part = kl_uht(a, w, h, eps, chunk=chunk)
         return lax.psum(part, COL_AXIS)
 
     return shard_map(local, mesh=mesh,
@@ -83,8 +72,7 @@ def kl_uht_sharded(A, W, H, eps, mesh, chunk: int = 0,
                      out_specs=P(ROW_AXIS, None), check_vma=False)(A, W, H)
 
 
-def kl_wtu_sharded(A, W, H, eps, mesh, chunk: int = 0,
-                   use_pallas: bool = False):
+def kl_wtu_sharded(A, W, H, eps, mesh, chunk: int = 0):
     """Memory-bounded WTU on a device mesh (reference WTU_glob,
     dist_nmf.py:293-318: local product -> Reduce_scatter over the row
     communicator); see kl_uht_sharded."""
@@ -92,7 +80,7 @@ def kl_wtu_sharded(A, W, H, eps, mesh, chunk: int = 0,
     from ..parallel.mesh import COL_AXIS, ROW_AXIS
 
     def local(a, w, h):
-        part = kl_wtu(a, w, h, eps, chunk=chunk, use_pallas=use_pallas)
+        part = kl_wtu(a, w, h, eps, chunk=chunk)
         return lax.psum(part, ROW_AXIS)
 
     return shard_map(local, mesh=mesh,

@@ -12,7 +12,7 @@ lowers these to exactly the hand-written collective patterns of the reference
     sum_axis         == sum_along_axis with Allreduce            (dist_nmf.py:775-801)
 
 The matmuls ask for f32 accumulation explicitly (``preferred_element_type``)
-so bf16 inputs still ride the MXU with full-precision accumulation.
+so bf16 inputs run on the tensor cores with full-precision accumulation.
 """
 from __future__ import annotations
 
@@ -45,12 +45,12 @@ def _acc_dtype(x):
 
 
 def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
-    """MXU matmul with f32 (or f64) accumulation.
+    """Matmul with f32 (or f64) accumulation.
 
-    Same-dtype inputs return that dtype.  Mixed-dtype inputs implement the
-    standard TPU mixed-precision recipe: both operands are fed to the MXU in
-    the *narrower* input dtype (so e.g. a bf16-stored A is read from HBM at
-    half bandwidth and the small factor operand is rounded once, on-chip),
+    Same-dtype inputs return that dtype.  Mixed-dtype inputs follow the
+    usual mixed-precision recipe: both operands enter the product in the
+    *narrower* input dtype (so e.g. a bf16-stored A is read from memory at
+    half the bytes and the small factor operand is rounded once),
     accumulation stays f32/f64, and the result is returned in the *wider*
     dtype so factor updates keep full precision."""
     if is_sparse(a) or is_sparse(b):
@@ -65,7 +65,7 @@ def matmul(a: jax.Array, b: jax.Array) -> jax.Array:
         if jnp.issubdtype(wide, jnp.integer):
             wide = jnp.float32
         if jnp.dtype(int_dt).itemsize == 1 and wide != jnp.float64:
-            # 8-bit operand (uint8-quantized A): feed the MXU in bf16 —
+            # 8-bit operand (uint8-quantized A): multiply in bf16 —
             # exact for 8-bit integers (bf16 represents 0..256 exactly) —
             # accumulate f32, return the float side's dtype
             out = jnp.matmul(a.astype(jnp.bfloat16),
@@ -195,9 +195,9 @@ def relative_error(A: jax.Array, W: jax.Array, H: jax.Array,
     """||A - W H||_F / ||A||_F  (reference pyDNMF.py:204-210).
 
     ``chunk`` > 0 scans row blocks so the m x n residual (and the W H
-    product) never materializes — required at flagship scale, where
-    A + W H alone (2 x 8.8 GB f32) exceeds one v5e HBM.  Numerics match
-    the direct path up to f32 summation order."""
+    product) never materializes — at flagship scale A + W H alone take
+    2 x 8.8 GB (f32).  Numerics match the direct path up to f32
+    summation order."""
     if is_sparse(A):
         return _sparse_relative_error(A, W, H)
     if not chunk or chunk >= A.shape[0]:
@@ -253,7 +253,7 @@ def quantize_uint8(A: jax.Array):
     max(A)/510 per entry.
 
     Row-chunked: at flagship scale a full-size f32 `A/s` temp (8.8 GB)
-    next to A itself would exceed HBM; only a chunk-row slab ever exists."""
+    would double A's footprint; only a chunk-row slab ever exists."""
     scale = jnp.max(A).astype(jnp.float32) / 255.0
     scale = jnp.where(scale > 0, scale, 1.0)
 

@@ -281,25 +281,31 @@ def shard_sparse_grid(A, ctx, return_perm: bool = False):
     return gs, (m_pad, n_pad)
 
 
-def shard_sparse_for_grid(A, ctx, fmt=None):
-    """Build the grid execution format for a BCOO A on ctx's (p_r, p_c)
-    mesh (single-solve path; the NMFk ensemble builds formats itself for
-    the member-perm plumbing).  ``fmt``: None = auto — per-block
-    capped-ELL (ops/ell.py, the TPU gather path: measured 3-4x the
-    segment_sum triplet rate per nnz) when on TPU and the matrix packs,
-    triplet otherwise (CPU's segment_sum path is efficient); "ell" /
-    "triplet" force.  Returns (sharded, (m_pad, n_pad))."""
+def grid_sparse_format(fmt=None) -> str:
+    """'ell' or 'triplet' for a sparse A on a (p_r, p_c) grid.  ``fmt``
+    forces one; None picks the segment_sum triplet, the faster format on
+    the CPU and, on an H100, as fast or faster than grid-ELL on a
+    40000x40000 matrix at k=32 and every nnz measured, 3.2e5 to 3.2e7
+    (PERF.md, "grid-ELL versus triplet")."""
     f = (fmt or "").lower() or None
     if f not in (None, "ell", "triplet"):
         raise ValueError(f"sparse_grid_format must be 'ell' or 'triplet', "
                          f"got {fmt!r}")
-    import jax as _jax
-    if f == "ell" or (f is None and _jax.default_backend() == "tpu"):
+    return f or "triplet"
+
+
+def shard_sparse_for_grid(A, ctx, fmt=None):
+    """Build the grid execution format for a BCOO A on ctx's (p_r, p_c)
+    mesh (single-solve path; the NMFk ensemble builds formats itself for
+    the member-perm plumbing).  ``fmt`` as in grid_sparse_format; the
+    per-block capped-ELL falls back to the triplet when the matrix does
+    not pack, unless it was forced.  Returns (sharded, (m_pad, n_pad))."""
+    if grid_sparse_format(fmt) == "ell":
         from .ell import grid_ell_pack
         E = grid_ell_pack(A, ctx)
         if E is not None:
             return E, E.shape
-        if f == "ell":
+        if fmt:
             raise ValueError(
                 "sparse_grid_format='ell' but the matrix does not "
                 "ELL-pack (nnz distribution too skewed / tails too "
@@ -420,21 +426,21 @@ def rs_col_sqsum(A, n: int):
 
 
 # ---------------------------------------------------------------------------
-# backend dispatch: sparse-as-compute only pays on CPU
+# backend dispatch: the execution format of a sparse A on an accelerator
 # ---------------------------------------------------------------------------
 def densify_for_backend(A, budget_frac: float = 0.45, allow_ell: bool = True,
                         k_hint: int = 32):
-    """Pick the TPU execution format for a sparse A (measurement-driven —
-    tools/sparse_probe.py on the v5e, docs/PERFORMANCE.md):
+    """Pick the accelerator execution format for a sparse A from the
+    per-device cost model (ops/ell.py::ell_time_model, measured by
+    tools/sparse_probe.py):
 
-    * element-level products are gather-bound at ~0.25 Gnnz/s (segment_sum
-      scatter: 0.086) vs the MXU dense path streaming A at HBM bandwidth —
-      dense wins above ~0.3% density (k=32), so moderate-density input
-      densifies (it is FASTER, not just simpler);
+    * element-level products are gather-bound while the dense path
+      streams A at memory bandwidth, so above a density crossover
+      moderate-density input densifies (it is FASTER, not just simpler);
     * below the crossover the dual-ELL gather path (ops/ell.py) wins and
       is kept sparse;
-    * when even a dense bf16 A cannot fit the HBM budget, ELL runs the
-      beyond-HBM regime with O(nnz) memory (this used to raise).
+    * when even a dense bf16 A cannot fit the memory budget, ELL runs the
+      beyond-HBM regime with O(nnz) memory.
 
     The dtype ladder densifies f32 input to bf16 when only bf16 fits
     (errors floor at bf16's ~3-digit resolution — same trade as
@@ -447,8 +453,8 @@ def densify_for_backend(A, budget_frac: float = 0.45, allow_ell: bool = True,
             or isinstance(A, EllSparse) or isinstance(A, GridEllSparse)
             or isinstance(A, SparseGridInput)):
         return A                      # already committed to a format
-    import jax
-    if jax.default_backend() == "cpu":
+    from ..parallel.mesh import on_accelerator
+    if not on_accelerator():
         return A
     from ..utils.memory import device_memory_budget
     from .ell import ell_pack, ell_time_model
@@ -487,7 +493,7 @@ def densify_for_backend(A, budget_frac: float = 0.45, allow_ell: bool = True,
                 f"sparse A exceeds the dense HBM budget even at bf16 "
                 f"({m * n * 2 / 1e9:.1f} GB > {budget / 1e9:.1f} GB); "
                 "running the ELL gather path (memory O(nnz), throughput "
-                "gather-bound — docs/PERFORMANCE.md)")
+                "gather-bound)")
             return ell
     raise ValueError(
         f"sparse A would densify to {need / 1e9:.2f} GB "

@@ -1,6 +1,6 @@
 """Device-mesh construction and canonical shardings for distributed NMF.
 
-This module is the TPU-native replacement for the reference's communicator
+This module is the JAX replacement for the reference's communicator
 layer (pyDNMFk/dist_comm.py: ``MPI_comm`` building a ``p_r x p_c``
 ``Create_cart`` grid plus row/column sub-communicators).  Here the grid is a
 ``jax.sharding.Mesh`` with axes ``('r', 'c')``; the row/column
@@ -36,6 +36,13 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 ROW_AXIS = "r"
 COL_AXIS = "c"
 ENSEMBLE_AXIS = "e"
+
+
+def on_accelerator() -> bool:
+    """The one backend decision: True on an accelerator (the GPU), False
+    on the CPU.  Policies that differ by hardware key on this or on the
+    device's ``device_kind``, never on a backend name of their own."""
+    return jax.default_backend() != "cpu"
 
 
 def make_grid_mesh(p_r: int, p_c: int, p_e: int = 1,
@@ -192,14 +199,21 @@ def sync_processes(name: str) -> None:
 
 def initialize_multihost(coordinator_address: Optional[str] = None,
                          num_processes: Optional[int] = None,
-                         process_id: Optional[int] = None) -> None:
+                         process_id: Optional[int] = None,
+                         local_device_ids: Optional[Sequence[int]] = None
+                         ) -> None:
     """Multi-host bootstrap: replaces ``mpirun`` process management.
 
-    On TPU pods this is ``jax.distributed.initialize()`` with automatic
-    environment detection; arguments are for manual clusters.
+    Without arguments ``jax.distributed.initialize()`` detects a managed
+    cluster (e.g. SLURM); elsewhere pass the coordinator address, process
+    count and id.  Several processes on ONE GPU host must each own their
+    own cards (``local_device_ids``, e.g. ``[process_id]``): a JAX process
+    reserves most of the memory of every card it opens, so a second
+    process on the same card fails for want of memory.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )

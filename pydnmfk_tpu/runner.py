@@ -47,7 +47,7 @@ class Runner:
         self.sill_thr = sill_thr
         self.sampling = sampling
         self.process = process
-        # TPU-native knobs beyond the reference surface (config.py)
+        # knobs beyond the reference surface (config.py)
         self.seed = seed
         self.tol = tol
         self.solve_checkpoint_every = solve_checkpoint_every

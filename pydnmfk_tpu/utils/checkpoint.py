@@ -9,8 +9,9 @@ This implementation checkpoints at strictly finer granularity: alongside
 (flag, perturbation, k) it stores the RNG seed, completed ensemble batches
 persist to per-k ``ensemble_parts/`` files (config-stamped, replayed on
 restart — models/nmfk.py, tested by tests/test_ensemble_memory.py), and
-when a k completes the per-k results live in results.h5 exactly as in the
-reference (which is what makes restart-at-k valid there too).  State is
+when a k completes the per-k results live in results.npz (results.h5 in
+the reference layout where h5py is installed), as the reference keeps
+them (which is what makes restart-at-k valid there too).  State is
 JSON (human-readable, version-tagged) instead of pickled objects.
 """
 from __future__ import annotations
@@ -143,6 +144,14 @@ class _OrbaxSolveCheckpoint:
     _SLOTS = (".a", ".b")
 
     def __init__(self, results_path: str, k: int, tag: str):
+        try:
+            import orbax.checkpoint  # noqa: F401
+        except ImportError:
+            raise ImportError(
+                "solve_checkpoint_every on mesh-sharded factors persists "
+                "them with orbax-checkpoint, which is not installed; "
+                "install it or run the solve on one device (npz "
+                "checkpoints)") from None
         self.base = os.path.abspath(
             os.path.join(results_path, f"solve_ckpt_k{k}.orbax"))
         self.tagfile = self.base + ".tag"

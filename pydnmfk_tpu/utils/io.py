@@ -6,7 +6,7 @@ reference data_io.py:44-47).  Results persistence (per-k factor chunks and
 ``results.h5`` statistics) keeps the reference's on-disk layout so existing
 post-processing and the MLP k-predictor work unchanged.
 
-TPU-native departures:
+Departures from the reference:
   * The reference has every rank load the FULL file then slice its block
     (data_io.py:92-105) — the documented IO hot spot.  Here sharded arrays
     are assembled with ``jax.make_array_from_callback``, so each host only
@@ -503,7 +503,7 @@ class DataReader:
 # ---------------------------------------------------------------------------
 class DataWriter:
     """API mirror of reference ``data_write`` (data_io.py:143-209): per-grid
-    factor chunks as .npy + rank-0-style results.h5."""
+    factor chunks as .npy + rank-0-style per-k statistics."""
 
     def __init__(self, results_path: str, pgrid: Sequence[int] = (1, 1)):
         self.fpath = results_path
@@ -544,25 +544,47 @@ class DataWriter:
                 np.save(os.path.join(hdir, f"H_{order[b]}.npy"), H[:, s:e])
 
     def save_cluster_results(self, stats: dict, config: dict = None):
-        """results.h5 with the reference's dataset names
-        (data_io.py:198-209); run configuration stamped as attrs for
-        reproducibility (no reference equivalent)."""
-        import h5py
+        """Per-k statistics under the reference's dataset names
+        (data_io.py:198-209).  ``results.npz`` always holds them — the
+        Wilcoxon walk reads it back (models/nmfk.py::pvalue_analysis) —
+        and the reference-layout ``results.h5``, with the run
+        configuration stamped as attrs, is written in addition wherever
+        h5py is installed."""
+        data = {
+            "clusterSilhouetteCoefficients":
+                np.asarray(stats["clusterSilhouetteCoefficients"]),
+            "avgSilhouetteCoefficients":
+                np.asarray(stats["avgSilhouetteCoefficients"]),
+            "L_err": np.asarray(stats["L_err"]),
+            "L_errDist": np.asarray(stats["L_errDist"]),
+            "avgErr": np.asarray(stats["avgErr"]),
+            "ErrTol": np.asarray(stats["recon_err"]),
+            "AIC": np.asarray(stats["AIC"]),
+        }
+        tmp = os.path.join(self.fpath, "results.tmp.npz")
+        np.savez(tmp, **data)
+        os.replace(tmp, os.path.join(self.fpath, "results.npz"))
+        try:
+            import h5py
+        except ImportError:
+            return
         with h5py.File(os.path.join(self.fpath, "results.h5"), "w") as hf:
             for key, val in (config or {}).items():
                 try:
                     hf.attrs[key] = val
                 except TypeError:
                     hf.attrs[key] = str(val)
-            hf.create_dataset("clusterSilhouetteCoefficients",
-                              data=np.asarray(stats["clusterSilhouetteCoefficients"]))
-            hf.create_dataset("avgSilhouetteCoefficients",
-                              data=np.asarray(stats["avgSilhouetteCoefficients"]))
-            hf.create_dataset("L_err", data=np.asarray(stats["L_err"]))
-            hf.create_dataset("L_errDist", data=np.asarray(stats["L_errDist"]))
-            hf.create_dataset("avgErr", data=np.asarray(stats["avgErr"]))
-            hf.create_dataset("ErrTol", data=np.asarray(stats["recon_err"]))
-            hf.create_dataset("AIC", data=np.asarray(stats["AIC"]))
+            for key, val in data.items():
+                hf.create_dataset(key, data=val)
+
+
+def read_cluster_results(kdir: str) -> dict:
+    """One k's statistics from the ``results.npz`` that
+    ``DataWriter.save_cluster_results`` always writes.  Every reader in the
+    program (the Wilcoxon walk, the selection plot, the ML k-predictor)
+    goes through here, so none needs h5py."""
+    with np.load(os.path.join(kdir, "results.npz")) as f:
+        return {key: np.array(f[key]) for key in f.files}
 
 
 def _splits(dim, nblocks):

@@ -2,9 +2,9 @@
 
 The reference solves ensemble members serially (pyDNMFk.py:226-231), so its
 peak memory is one perturbed copy of A.  This framework batches members into
-one vmapped program — a large parallelism win that must not exceed HBM at
-flagship scale (57600x38400 f32 is 8.8 GB per copy; 20 copies is 11x one
-v5e).  ``auto_ensemble_batch`` sizes the batch from the device memory budget
+one vmapped program — a large parallelism win that must not exceed device
+memory at flagship scale (57600x38400 f32 is 8.8 GB per copy; 20 copies is
+176 GB).  ``auto_ensemble_batch`` sizes the batch from the device memory budget
 with a conservative per-member cost model, so the pipeline degrades smoothly
 from "whole ensemble at once" down to the reference's serial behavior as the
 problem grows.
@@ -23,27 +23,33 @@ import numpy as np
 A_WORK = 2.5
 F_WORK = 8.0
 HEADROOM = 0.85          # fraction of the budget we allow ourselves
-_DEFAULTS = {"tpu": 16 << 30, "gpu": 16 << 30, "cpu": 8 << 30}
+# The CPU backend reports no memory stats; batches there are sized
+# against this much host memory.
+CPU_BUDGET = 8 << 30
 
 
-def device_memory_budget(backend: Optional[str] = None) -> int:
+def device_memory_budget() -> int:
     """Per-device memory budget in bytes.
 
-    Order: PYDNMFK_HBM_BUDGET env var -> device.memory_stats()'s bytes_limit
-    (real HBM size on TPU) -> per-backend default (v5e-sized for TPU).
+    Order: the PYDNMFK_HBM_BUDGET env var, then the first local device's
+    ``memory_stats()["bytes_limit"]`` (the pool JAX reserved on the card).
+    An accelerator that reports neither is an error, never a guessed size;
+    the CPU backend, which has no stats, uses CPU_BUDGET.
     """
     env = os.environ.get("PYDNMFK_HBM_BUDGET")
     if env:
         return int(float(env))
     import jax
-    dev = jax.local_devices()[0]
-    try:
-        stats = dev.memory_stats()
-        if stats and stats.get("bytes_limit"):
-            return int(stats["bytes_limit"])
-    except Exception:
-        pass
-    return _DEFAULTS.get(backend or jax.default_backend(), _DEFAULTS["cpu"])
+    from ..parallel.mesh import on_accelerator
+    stats = jax.local_devices()[0].memory_stats()
+    if stats and stats.get("bytes_limit"):
+        return int(stats["bytes_limit"])
+    if on_accelerator():
+        raise RuntimeError(
+            f"device {jax.local_devices()[0].device_kind!r} reports no "
+            "memory_stats()['bytes_limit']; set PYDNMFK_HBM_BUDGET (bytes) "
+            "or NMFkConfig.hbm_budget")
+    return CPU_BUDGET
 
 
 def ensemble_member_bytes(m: int, n: int, k: int, ncfg, grid_shape,

@@ -2,9 +2,9 @@
 
 Reference: pyDNMFk/plot_results.py.  Same artifact set: per-component factor
 plots, the `<fname>_selection_plot.pdf` k-selection curve (Mean-L2 %,
-relative-error %, minimum stability vs k read back from per-k results.h5),
+relative-error %, minimum stability vs k read back from per-k results.npz),
 and a timing bar chart.  Matplotlib is imported lazily with the Agg backend
-so headless TPU hosts work.
+so headless hosts work.
 """
 from __future__ import annotations
 
@@ -82,16 +82,16 @@ def plot_results(ks, RECON, RECON1, SILL_MIN, out_dir: str, name: str):
 
 
 def plot_results_fpath(results_path: str, ks, name: str = None):
-    """Same plot, reading per-k results.h5 (reference :102-145)."""
-    import h5py
+    """Same plot, reading each k's results.npz (reference :102-145 reads
+    the same statistics from results.h5)."""
+    from .io import read_cluster_results
     RECON, RECON1, SILL = [], [], []
     for k in ks:
-        with h5py.File(os.path.join(results_path, str(k),
-                                    "results.h5"), "r") as f:
-            RECON.append(float(np.mean(np.array(f["L_err"]))))
-            RECON1.append(float(np.array(f["avgErr"])))
-            SILL.append(round(float(np.min(
-                np.array(f["clusterSilhouetteCoefficients"]))), 2))
+        f = read_cluster_results(os.path.join(results_path, str(k)))
+        RECON.append(float(np.mean(f["L_err"])))
+        RECON1.append(float(f["avgErr"]))
+        SILL.append(round(float(np.min(
+            f["clusterSilhouetteCoefficients"])), 2))
     plot_results(list(ks), RECON, RECON1, SILL, results_path,
                  name or os.path.basename(results_path.rstrip("/")))
 

@@ -95,7 +95,7 @@ def _is_arrayish(x) -> bool:
 # (plot_results.py:157-201).  Under XLA the collectives are compiler-inserted,
 # so the equivalent is read off the compiled HLO: op counts and bytes moved
 # per collective kind, optionally converted to an estimated time via a link
-# bandwidth to populate TIMINGS['dist_comm'].
+# rate the caller supplies, to populate TIMINGS['dist_comm'].
 # ---------------------------------------------------------------------------
 _COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter",
                      "collective-permute", "all-to-all")
@@ -142,11 +142,12 @@ def collective_stats(fn, *args) -> Dict[str, object]:
             "bytes": total}
 
 
-def record_dist_comm(fn, *args, link_gbps: float = 45.0,
+def record_dist_comm(fn, *args, link_gbps: float,
                      iterations: int = 1) -> Dict[str, object]:
-    """Estimate collective time of ``fn(*args)`` from HLO bytes / bandwidth
-    (default 45 GB/s ~ one v5e ICI link) and accumulate it under the
-    reference's 'dist_comm' timing category.
+    """Estimate collective time of ``fn(*args)`` from HLO bytes over the
+    caller's per-link rate ``link_gbps`` (GB/s, measured on the machine at
+    hand) and accumulate it under the reference's 'dist_comm' timing
+    category.
 
     Recorded as ``dist_comm_est`` — the ``_est`` suffix marks it as a
     bytes/bandwidth model, distinguishing it from the measured wall-time
@@ -175,13 +176,19 @@ def category_breakdown() -> Dict[str, float]:
 
 
 def save_csv(path: str):
-    import pandas as pd
-    pd.DataFrame([TIMINGS]).to_csv(path)
+    """One-row CSV of the accumulated timings (index column first, as the
+    reference's pandas writer laid it out)."""
+    import csv
+    names = list(TIMINGS)
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([""] + names)
+        w.writerow([0] + [TIMINGS[k] for k in names])
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str] = None):
-    """XLA profiler trace (TPU): compute vs collective breakdown in
+    """XLA profiler trace: compute vs collective breakdown in
     TensorBoard; replaces the reference's Timing_stats.csv taxonomy at the
     hardware level."""
     if logdir is None:

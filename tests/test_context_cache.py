@@ -26,8 +26,7 @@ def test_ensemble_program_shared_across_instances():
     from pydnmfk_tpu.parallel.mesh import grid_context
 
     ncfg = NMFConfig(k=2, itr=10, norm="fro", method="mu", grid=(2, 2))
-    args = (ncfg, 4, "uniform", 0.01, grid_context(2, 2), False, False,
-            0, None, False)
+    args = (ncfg, 4, "uniform", 0.01, grid_context(2, 2), False, 0, None)
     assert _ensemble_program(*args) is _ensemble_program(*args)
 
 

@@ -50,9 +50,9 @@ def test_auto_batch_bounds_and_monotonicity():
 
 def test_auto_batch_flagship_scale_fits_hbm():
     """At the reference's headline 57600x38400 size the chosen batch's
-    working set must fit one v5e HBM in every configuration that CAN fit
-    (the r1 build materialized all 20 copies = 11x HBM).  At f32 on a single
-    chip even one member exceeds HBM (A + one perturbed copy = 17.6 GB) —
+    working set must fit a 16 GB budget in every configuration that CAN
+    fit (materializing all 20 copies would take 11x that).  At f32 on one
+    device even one member exceeds it (A + one perturbed copy = 17.6 GB) —
     there the sizer returns the serial floor of 1 and the remedy is bf16-A
     storage or mesh sharding, both asserted below."""
     m, n, k = 57600, 38400, 32

@@ -116,8 +116,8 @@ def test_padded_clustering_matches_unpadded():
 
 
 def test_polyk_single_solver_trace(tmp_path):
-    """The sweep compiles the solver program ONCE (the round-4 build
-    re-traced it per k — the dominant TPU sweep cost)."""
+    """The sweep compiles the solver program ONCE (re-tracing it per k
+    made compile time the dominant sweep cost)."""
     nmfk_mod._ensemble_program_polyk.cache_clear()
     nmfk_mod._ensemble_init_program.cache_clear()
     A = make_data()

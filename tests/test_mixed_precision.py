@@ -1,8 +1,9 @@
 """Mixed precision: A stored bf16, factors/accumulation f32.
 
-The TPU-native fast path (no reference equivalent): the two A-sized matmul
-reads per MU iteration dominate HBM traffic, so storing A in bfloat16 halves
-it while W/H and all accumulation stay float32 (ops/linalg.py::matmul).
+The mixed-precision fast path (no reference equivalent): the two A-sized
+matmul reads per MU iteration dominate memory traffic, so storing A in
+bfloat16 halves it while W/H and all accumulation stay float32
+(ops/linalg.py::matmul).
 """
 import jax
 import jax.numpy as jnp
@@ -73,8 +74,8 @@ def test_mixed_precision_nmfk_selects_k(tmp_path):
 
 
 def test_matmul_precision_knob():
-    """matmul_precision='highest' (true-f32 multi-pass dots on TPU; a
-    no-op on CPU) threads through solve and the ensemble tag."""
+    """matmul_precision='highest' (true-f32 dots on the GPU instead of
+    TF32; a no-op on CPU) threads through solve and the ensemble tag."""
     A = _lowrank()
     cfg = NMFConfig(k=3, norm="fro", method="mu", itr=200, seed=100,
                     matmul_precision="highest")

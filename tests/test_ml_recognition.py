@@ -12,6 +12,7 @@ import pytest
 from conftest import reference_path
 from pydnmfk_tpu.models.ml_recognition import (MLFeatureTools, MLPModel,
                                                predict_k)
+from pydnmfk_tpu.utils.io import DataWriter
 
 MODEL_JSON = "data/convolute7-model-mAM-p.json"
 
@@ -49,22 +50,19 @@ def test_forward_pass_matches_sklearn():
 
 
 def _write_results(tmp_path, ks, true_k):
-    """Synthetic per-k results.h5: silhouettes collapse after true_k."""
-    import h5py
+    """Synthetic per-k results.npz: silhouettes collapse after true_k."""
     for k in ks:
         d = os.path.join(str(tmp_path), str(k))
         os.makedirs(d, exist_ok=True)
         sils = np.ones(k) if k <= true_k else np.concatenate(
             [np.ones(true_k), 0.2 * np.ones(k - true_k)])
         err = 1.0 / min(k, true_k) + (0.001 * k)
-        with h5py.File(os.path.join(d, "results.h5"), "w") as f:
-            f.create_dataset("clusterSilhouetteCoefficients", data=sils)
-            f.create_dataset("avgSilhouetteCoefficients", data=sils.mean())
-            f.create_dataset("L_err", data=np.full(10, err))
-            f.create_dataset("L_errDist", data=err)
-            f.create_dataset("avgErr", data=err)
-            f.create_dataset("ErrTol", data=np.full(4, err))
-            f.create_dataset("AIC", data=-1000.0 / min(k, true_k))
+        DataWriter(d).save_cluster_results({
+            "clusterSilhouetteCoefficients": sils,
+            "avgSilhouetteCoefficients": sils.mean(),
+            "L_err": np.full(10, err), "L_errDist": err, "avgErr": err,
+            "recon_err": np.full(4, err),
+            "AIC": -1000.0 / min(k, true_k)})
 
 
 def test_build_statistics_shapes(tmp_path):

@@ -20,16 +20,13 @@ def test_plot_w(tmp_path):
 
 
 def test_selection_plot_from_results(tmp_path):
-    import h5py
     ks = [2, 3, 4]
     for k in ks:
         d = tmp_path / str(k)
         d.mkdir()
-        with h5py.File(str(d / "results.h5"), "w") as f:
-            f.create_dataset("L_err", data=np.full(10, 1.0 / k))
-            f.create_dataset("avgErr", data=1.0 / k)
-            f.create_dataset("clusterSilhouetteCoefficients",
-                             data=np.ones(k) * 0.9)
+        np.savez(str(d / "results.npz"), L_err=np.full(10, 1.0 / k),
+                 avgErr=1.0 / k,
+                 clusterSilhouetteCoefficients=np.ones(k) * 0.9)
     plotting.plot_results_fpath(str(tmp_path), ks, name="t")
     assert os.path.getsize(str(tmp_path / "t_selection_plot.pdf")) > 0
 

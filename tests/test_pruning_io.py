@@ -61,11 +61,15 @@ def test_zero_masks_no_zeros():
     assert rm.all() and cm.all()
 
 
-def test_data_reader_mat_and_chunks():
-    r = DataReader("/root/reference/data/", "wtsi", "mat", pgrid=(2, 1),
+def test_data_reader_mat_and_chunks(tmp_path):
+    from scipy.io import savemat
+    X = np.random.default_rng(2).random((96, 21))
+    savemat(str(tmp_path / "wtsi.mat"), {"X": X})
+    r = DataReader(str(tmp_path) + "/", "wtsi", "mat", pgrid=(2, 1),
                    precision="float64")
     full = r.read_global()
     assert full.shape == (96, 21)
+    np.testing.assert_array_equal(full, X)
     c0, c1 = r.read_chunk(0), r.read_chunk(1)
     assert c0.shape == (48, 21) and c1.shape == (48, 21)
     np.testing.assert_array_equal(np.vstack([c0, c1]), full)

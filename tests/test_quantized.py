@@ -1,14 +1,11 @@
 """uint8-quantized A storage (a_precision='uint8'): the solve factorizes
 Q = round(A/s) with the scale folded into the returned H; swim-style
-uint8 data (max 255) quantizes exactly.  Quarters the dominant HBM
-traffic through the fused one-pass kernel (docs/PERFORMANCE.md)."""
-import functools
-
+uint8 data (max 255) quantizes exactly.  Quarters the bytes of A each
+product reads."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental import pallas as pl
 
 from pydnmfk_tpu.config import NMFConfig
 from pydnmfk_tpu.models import nmf as nmf_mod
@@ -64,46 +61,30 @@ def test_uint8_solve_matches_f32_on_uint8_data(tmp_path):
     assert col.shape == (40,) and np.all(np.isfinite(col))
 
 
-def test_uint8_fused_kernel_matches_standard():
-    """The fused one-pass kernel on uint8 A (interpret mode) matches the
-    standard integer-matmul step."""
-    from pydnmfk_tpu.ops.fused_mu import fused_mu_fro_step
-    from pydnmfk_tpu.models.updates import mu_fro_step
-    rng = np.random.default_rng(3)
-    A = jnp.asarray(rng.integers(0, 256, size=(64, 48)), jnp.uint8)
-    W = jnp.asarray(rng.random((64, 4)), jnp.float32)
-    H = jnp.asarray(rng.random((4, 48)), jnp.float32)
-    real = pl.pallas_call
-    try:
-        pl.pallas_call = functools.partial(real, interpret=True)
-        W1, H1 = fused_mu_fro_step(A, W, H, 1e-7)
-    finally:
-        pl.pallas_call = real
-    W2, H2 = mu_fro_step(A, W, H, jnp.float32(1e-7))
-    np.testing.assert_allclose(np.asarray(W1), np.asarray(W2), rtol=5e-3,
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(H1), np.asarray(H2), rtol=5e-3,
-                               atol=1e-4)
-
-
 def test_uint8_auto_dispatch_and_nmfk_guard(tmp_path, monkeypatch):
+    """On an accelerator backend uint8-stored A runs the XLA solve (integer
+    matmul rule, no chunking at this size) and matches the same solve on
+    the dequantized f32 matrix; NMFk refuses uint8 storage."""
     captured = {}
     real = nmf_mod._jitted_solver
 
     def spy(*a, **kw):
-        captured["use_fused"] = a[7] if len(a) > 7 else kw.get("use_fused")
+        captured["chunk"] = a[4]
         return real(*a, **kw)
 
     monkeypatch.setattr(nmf_mod, "_jitted_solver", spy)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(
-        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     A = jnp.asarray(np.arange(64 * 48).reshape(64, 48) % 256, jnp.uint8)
-    W = jnp.ones((64, 3), jnp.float32)
-    H = jnp.ones((3, 48), jnp.float32)
-    nmf_mod.solve(A, W, H, jnp.float32(1e-7),
-                  NMFConfig(k=3, norm="fro", itr=1))
-    assert captured["use_fused"] is True      # uint8-A: fused auto-on (TPU)
+    W = jnp.asarray(np.random.default_rng(0).random((64, 3)), jnp.float32)
+    H = jnp.asarray(np.random.default_rng(1).random((3, 48)), jnp.float32)
+    cfg = NMFConfig(k=3, norm="fro", itr=5)
+    W8, H8, e8 = nmf_mod.solve(A, W, H, jnp.float32(1e-7), cfg)
+    assert captured["chunk"] == 0
+    Wf, Hf, ef = nmf_mod.solve(A.astype(jnp.float32), W, H,
+                               jnp.float32(1e-7), cfg)
+    np.testing.assert_allclose(float(e8), float(ef), rtol=1e-3)
+    np.testing.assert_allclose(np.asarray(W8), np.asarray(Wf), rtol=2e-2,
+                               atol=1e-5)
 
     from pydnmfk_tpu.config import NMFkConfig
     from pydnmfk_tpu.models.nmfk import NMFk

@@ -40,7 +40,7 @@ def test_runner_rejects_bad_process():
         Runner(process="bogus")
 
 
-def test_runner_tpu_knobs(tmp_path):
+def test_runner_beyond_reference_knobs(tmp_path):
     """Beyond-reference knobs thread through the Runner: seed changes the
     init stream, tol stops early, solve_checkpoint_every persists chunks."""
     kw = dict(grid=[1, 1], fpath=reference_path("data") + "/",
@@ -73,8 +73,8 @@ def test_step_k(tmp_path):
 
 
 def test_cli_subprocess(tmp_path):
-    """Drive the real CLI in a subprocess (CPU-forced via a sitecustomize
-    bypass: we pass a tiny -c wrapper that flips the platform)."""
+    """Drive the real CLI in a subprocess (a tiny -c wrapper forces the CPU
+    platform before the CLI starts)."""
     code = (
         "import jax; jax.config.update('jax_platforms','cpu');"
         "from pydnmfk_tpu.cli import main;"
@@ -84,7 +84,8 @@ def test_cli_subprocess(tmp_path):
         f"'--results_path','{tmp_path}/'])"
     )
     env = dict(os.environ)
-    env["PYTHONPATH"] = "/root/repo:" + env.get("PYTHONPATH", "")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -106,7 +106,7 @@ def test_seed_grid_tiled_init():
     import jax
     ncfg = NMFConfig(k=3, itr=0, norm="fro", method="mu", init="rand")
     prog = _ensemble_program(ncfg, 2, "uniform", 0.02, grid_context(),
-                             False, False, 0, (2, 2))
+                             False, 0, (2, 2))
     A = jnp.asarray(np.random.default_rng(0).random((16, 8)), jnp.float32)
     W, H, errs = prog(A, jax.random.key(0), 0)
     W = np.asarray(W[0])

@@ -1,4 +1,4 @@
-"""Smoke + invariants for the simulated scaling study (docs/SCALING.md).
+"""Invariants of the collective-structure study (docs/SCALING.md).
 
 The study's load-bearing claims: per-iteration collective payloads are
 factor-sized (O((m/p_r + n/p_c) k)), constant per device under weak
@@ -32,10 +32,3 @@ def test_collective_structure_invariants():
     # 2D grids shrink the per-device payload vs 1D at the same p
     s2d = _stats((2, 2), m, n, k, "fro")
     assert s2d["per_dev_A_bytes"] == 4 * m * n // 4
-
-
-def test_model_monotonic():
-    import tools.scaling_study as ss
-    s = _stats((4, 1), 96, 64, 4, "fro")
-    t, t_ici = ss.model_step_seconds(s)
-    assert t > 0 and 0 <= t_ici < t

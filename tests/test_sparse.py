@@ -244,7 +244,7 @@ def test_sparse_nmfk_grid_ell_matches_triplet(tmp_path, grid, p_e):
 
 
 def test_sparse_nmfk_ell_mode_matches_bcoo(tmp_path, monkeypatch):
-    """NMFk with the ELL member format (the TPU very-sparse/beyond-HBM
+    """NMFk with the ELL member format (the very-sparse/beyond-HBM
     regime) selects the same k with near-identical stats as the BCOO
     triplet path — members perturb the same flat data vector, so noise
     streams are identical and only summation order differs."""
@@ -334,17 +334,31 @@ def test_sparse_npz_cli_and_runner(tmp_path):
                                rtol=1e-3)
 
 
+class _FakeCard:
+    """A stand-in first device with a measured sparse cost-table row."""
+    device_kind = "NVIDIA H100 80GB HBM3"
+
+    def memory_stats(self):
+        return None
+
+
+def _pretend_gpu(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    monkeypatch.setattr(jax, "devices", lambda *a: [_FakeCard()])
+    monkeypatch.setenv("PYDNMFK_HBM_BUDGET", str(16 << 30))
+
+
 def test_densify_for_backend(monkeypatch):
-    """Measurement-driven TPU format policy (tools/sparse_probe.py): dense
-    MXU above the gather crossover, bf16 ladder when f32 misses the
-    budget, ELL beyond that, raise only when ELL can't pack."""
+    """Measurement-driven GPU format policy (tools/sparse_probe.py): dense
+    above the gather crossover, bf16 ladder when f32 misses the budget,
+    ELL beyond that, raise only when ELL can't pack."""
     from pydnmfk_tpu.ops import sparse as sp_ops
     from pydnmfk_tpu.ops.ell import EllSparse
     A, Asp = _sparse_lowrank(20, 12, 2, density=0.4, seed=11)
     # CPU backend: passthrough, stays sparse
     assert linalg.is_sparse(sp_ops.densify_for_backend(Asp))
-    # pretend-TPU: moderate density -> dense round-trip (MXU wins)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    # pretend-GPU: moderate density -> dense round-trip (dense wins)
+    _pretend_gpu(monkeypatch)
     out = sp_ops.densify_for_backend(Asp)
     assert not linalg.is_sparse(out)
     np.testing.assert_allclose(np.asarray(out), A, rtol=1e-6)
@@ -364,15 +378,14 @@ def test_densify_for_backend(monkeypatch):
 
 
 def test_densify_prefers_ell_in_win_regime(monkeypatch):
-    """Very sparse input with LARGE m*n stays ELL on TPU even when dense
+    """Very sparse input with LARGE m*n stays ELL on the GPU even when dense
     would fit — streaming the dense A costs more than the gathers there
     (measured cost model, ops/ell.py::ell_time_model); small matrices
     densify regardless of density (per-call floors dominate)."""
     from pydnmfk_tpu.ops import sparse as sp_ops
     from pydnmfk_tpu.ops.ell import EllSparse
     rng = np.random.default_rng(0)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setenv("PYDNMFK_HBM_BUDGET", str(16 << 30))
+    _pretend_gpu(monkeypatch)
 
     def coo(m, n, nnz):
         flat = rng.choice(m * n, nnz, replace=False)

@@ -1,5 +1,5 @@
 """dist_comm timing category: collective op/byte accounting from compiled
-HLO (the TPU-native analogue of the reference timing the MPI collectives
+HLO (the XLA analogue of the reference timing the MPI collectives
 into its 'dist_comm' breakdown, plot_results.py:157-201)."""
 import jax
 import jax.numpy as jnp
@@ -36,7 +36,8 @@ def test_record_dist_comm_category():
     try:
         ctx = GridContext(make_grid_mesh(2, 2))
         W = jax.device_put(np.ones((32, 4), np.float32), ctx.sharding_W)
-        stats = timing.record_dist_comm(lambda w: w.T @ w, W)
+        stats = timing.record_dist_comm(lambda w: w.T @ w, W,
+                                        link_gbps=100.0)
         assert stats["est_seconds"] >= 0
         br = timing.category_breakdown()
         assert "dist_comm" in br

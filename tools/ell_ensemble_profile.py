@@ -1,10 +1,10 @@
-"""Where does the ELL ensemble's time actually go on the chip?  Stages:
+"""Where does the ELL ensemble's time actually go on the card?  Stages:
 (1) vmapped ELL FRO product pair (stacked-gather rule),
 (2) the member 'orient' gathers (flat data -> both ELL orientations),
 (3) the per-member relative-error sddmm,
 at bench geometry 40000^2 / nnz 3.2e5 / k=32 / b=8.
 
-Run: nohup python tools/ell_ensemble_profile.py > /tmp/ell_profile.log 2>&1 &
+Run: python tools/ell_ensemble_profile.py
 """
 import sys
 import time

@@ -3,7 +3,7 @@ b = 8 and 16: _take_rows (custom_vmap stacked) vs plain jnp.take (XLA's
 default batched gather).  Quantifies both the modest b=8 effect and the
 b=16 cliff the rule removes.
 
-Run: nohup python tools/ell_stack_ab.py > /tmp/ell_stack_ab.log 2>&1 &
+Run: python tools/ell_stack_ab.py
 """
 import sys
 import time

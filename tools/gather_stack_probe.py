@@ -1,14 +1,12 @@
 """Does stacking ensemble member tables widen the gather row and beat
-vmap's batched gather?  (Follow-up to the Mosaic dynamic_gather dead end:
-tools/gather_forms_probe*.py showed a Pallas table gather is not
-expressible, and XLA's gather rate rises with row width — k=32: 48 GB/s,
-k=64: 140 GB/s of gathered traffic.)
+vmap's batched gather?  (XLA's gather rate rises with row width, so one
+wide gather of b stacked tables can beat b narrow ones.)
 
 Compares, for b members sharing one index set (the ELL ensemble shape):
   vmap    : jax.vmap(lambda t: take(t, idx))(tables (b,n,k))
   stacked : take(tables.moveaxis->reshape (n, b*k), idx)  — one wide gather
 
-Run: nohup python tools/gather_stack_probe.py > /tmp/gather_stack.log 2>&1 &
+Run: python tools/gather_stack_probe.py
 """
 import sys
 import time

@@ -1,19 +1,16 @@
-"""Simulated scaling study on virtual CPU meshes (VERDICT r3 item 5).
+"""Collective structure of the sharded MU step on virtual CPU meshes.
 
-One real chip cannot reproduce the reference's strong/weak-scaling tables
-(BASELINE.md: 10 FRO-MU iters, 57600x38400, ~115 s @ 2 procs -> ~0.8 s
-@ 256; weak: ~12.1 -> ~13.1 s from 16 -> 1024 procs, ~92% efficiency).
-What CAN be measured exactly without hardware is the *communication
-structure* GSPMD emits for every grid: collective op counts and bytes per
-iteration, read off the compiled HLO (utils/timing.collective_stats), plus
-per-device FLOPs/HBM bytes.  Feeding those into a v5e roofline (measured
-single-chip rates + ICI bandwidth) gives a modeled scaling curve to set
-against the reference's published one.
+The reference publishes strong/weak-scaling tables (BASELINE.md: 10
+FRO-MU iters, 57600x38400, ~115 s @ 2 procs -> ~0.8 s @ 256).  What can
+be measured exactly without the hardware is the *communication structure*
+GSPMD emits for every grid: collective op counts and bytes per iteration,
+read off the compiled HLO (utils/timing.collective_stats), plus per-device
+FLOPs and A bytes.  It does not depend on the device, so it runs entirely
+on the 8-virtual-device CPU backend; times come only from runs on the
+cards.
 
-Writes docs/scaling_study.json and prints a markdown table (pasted into
-docs/SCALING.md).  Runs entirely on the 8-virtual-device CPU backend.
+Prints a markdown table (docs/SCALING.md).
 """
-import json
 import os
 import sys
 
@@ -34,10 +31,6 @@ from pydnmfk_tpu.utils import timing
 # flagship geometry, scaled so every grid tiles evenly
 M_FULL, N_FULL, K = 57600, 38400, 32
 SCALE = 25                       # CPU-sized: 2304 x 1536
-# v5e model parameters (measured in BENCH_r02 / docs/PERFORMANCE.md)
-HBM_GBPS = 700.0                 # streaming A
-ICI_GBPS = 45.0                  # one v5e ICI link direction
-F32_MATMUL_TFLOPS = 20.0         # measured k=32 f32 MU rate on the chip
 
 
 def step_stats(grid, m, n, k, norm="fro"):
@@ -66,17 +59,6 @@ def step_stats(grid, m, n, k, norm="fro"):
     }
 
 
-def model_step_seconds(s):
-    """v5e roofline: per-device compute vs HBM vs ICI, taking the max of
-    compute/memory (overlapped) plus serialized collective time.  Ring
-    all-reduce moves ~2x the payload per device (reduce-scatter +
-    all-gather), independent of p for large p."""
-    t_mxu = s["per_dev_flops"] / (F32_MATMUL_TFLOPS * 1e12)
-    t_hbm = s["per_dev_A_bytes"] * 2 / (HBM_GBPS * 1e9)   # A read twice
-    t_ici = 2 * s["collective_bytes"] / (ICI_GBPS * 1e9)
-    return max(t_mxu, t_hbm) + t_ici, t_ici
-
-
 def main():
     rows = []
     # --- strong scaling: fixed global problem, growing grid ---
@@ -98,41 +80,14 @@ def main():
         s["global"] = f"{mg}x{ng}"
         rows.append(s)
 
-    # modeled flagship-scale times (per 10 iters, reference workload)
-    full_ratio = (M_FULL * N_FULL) / (m * n)
-    for s in rows:
-        sf = dict(s)
-        sf["per_dev_flops"] = int(s["per_dev_flops"] * full_ratio)
-        sf["per_dev_A_bytes"] = int(s["per_dev_A_bytes"] * full_ratio)
-        # collective payloads are factor-sized: (m+n)k per device scales
-        # with the m-dimension ratio only
-        sf["collective_bytes"] = int(s["collective_bytes"] * (
-            full_ratio ** 0.5))
-        t, t_ici = model_step_seconds(sf)
-        s["modeled_s_per_10iter_flagship"] = round(10 * t, 3)
-        s["modeled_comm_share_pct"] = round(100 * t_ici / t, 1) if t else 0
-
-    out = {"params": {"k": K, "hbm_gbps": HBM_GBPS, "ici_gbps": ICI_GBPS,
-                      "f32_tflops": F32_MATMUL_TFLOPS,
-                      "cpu_mesh_global": f"{m}x{n}",
-                      "flagship_global": f"{M_FULL}x{N_FULL}"},
-           "rows": rows}
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "docs", "scaling_study.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"wrote {path}\n")
-
     hdr = ("| mode | norm | grid | global | coll ops | coll bytes/iter | "
-           "bytes/iter/dev A | modeled s/10it (flagship) | comm % |")
+           "bytes/iter/dev A |")
     print(hdr)
-    print("|" + "---|" * 9)
+    print("|" + "---|" * 7)
     for s in rows:
         print(f"| {s['mode']} | {s['norm']} | {s['grid']} | {s['global']} "
               f"| {s['collective_ops']} | {s['collective_bytes']:,} "
-              f"| {s['per_dev_A_bytes']:,} "
-              f"| {s['modeled_s_per_10iter_flagship']} "
-              f"| {s['modeled_comm_share_pct']} |")
+              f"| {s['per_dev_A_bytes']:,} |")
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
-"""TPU probe: end-to-end wtsi k-selection sweep wall-clock.
+"""GPU probe: end-to-end wtsi k-selection sweep wall-clock.
 
 Usage: python tools/wtsi_sweep_probe.py <polyk: 0|1>
-Cold-vs-warm compile cost is controlled by the CALLER via $HOME (the
-persistent XLA cache lives in ~/.cache/pydnmfk_tpu_xla) and by using a
-fresh process per run."""
+Cold-vs-warm compile cost is controlled by the CALLER via
+JAX_COMPILATION_CACHE_DIR (else the cache lives in <checkout>/.jax_cache)
+and by using a fresh process per run."""
 import sys
 import tempfile
 import time
